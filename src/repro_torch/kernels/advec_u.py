@@ -1,0 +1,80 @@
+"""advec_u — the paper's first MicroHH kernel (§5.2): flux-form advection
+with 5th-order interpolation on a periodic 3-D grid, as a tunable CUDA kernel
+(``csrc/advec_u.cu``) for the H100. Port of ``repro.kernels.advec_u``.
+
+The tuning space is the paper's CUDA one (see ``_stencil_common``), not the
+reference's TPU space. On CPU tensors the kernel's plain PyTorch version
+runs; on CUDA tensors the CUDA kernel, built for the config, or an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core import KernelBuilder, register
+from repro_torch.core.builder import dtype_name, probe_array
+
+from . import ref as _ref
+from ._build import CudaKernel
+from ._stencil_common import (add_stencil_space, check_fields, require_cuda,
+                              stencil_defines)
+
+_P = ctypes.c_void_p
+kernel = CudaKernel("advec_u", "advec_u.cu", "advec_u_launch",
+                    (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, _P))
+
+builder = KernelBuilder("advec_u", source="repro_torch.kernels.advec_u")
+add_stencil_space(builder)
+
+
+@builder.problem_size
+def _problem(u, v, w, scal):
+    return tuple(int(d) for d in u.shape)
+
+
+def launch(config, u, v, w, scal) -> torch.Tensor:
+    """ut for (u, v, w): the CUDA kernel with ``config`` on CUDA tensors,
+    the plain version on CPU tensors."""
+    check_fields((u, v, w), scal)
+    if u.device.type == "cpu":
+        return _ref.advec_u_ref(u, v, w, scal)
+    require_cuda(u, "advec_u")
+    out = torch.empty_like(u)
+    nz, ny, nx = u.shape
+    kernel(stencil_defines(config), dtype_name(u.dtype),
+           u.data_ptr(), v.data_ptr(), w.data_ptr(), scal.data_ptr(),
+           out.data_ptr(), nz, ny, nx,
+           torch.cuda.current_stream(u.device).cuda_stream)
+    return out
+
+
+@builder.build
+def _build(config, problem, meta):
+    if meta[0].device.type == "cuda":
+        lib = kernel.load(stencil_defines(config))   # nvcc: the JIT step
+    else:
+        lib = None
+
+    def run(u, v, w, scal):
+        return launch(config, u, v, w, scal)
+
+    run.library = lib
+    return run
+
+
+builder.reference(_ref.advec_u_ref)
+
+
+@builder.probe
+def _probe(problem, dtype):
+    rng = np.random.default_rng(0)
+    u, v, w = (probe_array(rng, problem, dtype) for _ in range(3))
+    scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], dtype=torch.float32)
+    return u, v, w, scal
+
+
+register(builder)

@@ -1,0 +1,177 @@
+// diff_uvw — diffusion of (u, v, w) with a variable eddy viscosity on a
+// periodic (nz, ny, nx) grid: d/dx(ev * df/dx) summed over the three axes,
+// halo 1, 27 flop/point/field.
+//
+// Replaces the TPU kernels of src/repro/kernels/diff_uvw.py:
+//   _fused_kernel  (pl.pallas_call at diff_uvw.py:111) -> diff_uvw_fused
+//   _single_kernel (pl.pallas_call at diff_uvw.py:126) -> diff_uvw_single
+// with the arithmetic of src/repro/kernels/ref.py:diff_term / diff_field.
+//
+// Bound on the H100: memory. The fused kernel reads u, v, w and evisc once
+// and writes three tendencies (7 fields, 81 flop per point: about 3 flop per
+// f32 byte against the card's ratio of 20). The single-field kernel reads
+// one field and evisc and writes one tendency; the fuse_outputs=False
+// variant launches it once per field, reading evisc three times (9 fields).
+//
+// Design: as advec_u.cu. Each thread owns an (x, y) column and walks
+// TILE_FACTOR_Z points in z, reading the 7-point neighbourhood through
+// __ldg with periodic wrap; overlapping reads between blocks are legal on
+// CUDA, so the TPU's halo side slabs and divisibility rule are gone, and the
+// ragged edge is masked. Compute is f32.
+#include "common.cuh"
+
+namespace {
+
+// a[1 + s] is the field shifted by s cells along one axis, e likewise.
+__device__ __forceinline__ float diff_term(const float* a, const float* e,
+                                           float di) {
+  const float ev_p = 0.5f * (e[1] + e[2]);
+  const float ev_m = 0.5f * (e[0] + e[1]);
+  return (di * di) * (ev_p * (a[2] - a[1]) - ev_m * (a[1] - a[0]));
+}
+
+struct Neighbours {
+  long long zo[3], yo[3];
+  int xi[3];
+  int i;
+};
+
+template <typename T>
+__device__ __forceinline__ float diff_field(const T* __restrict__ f,
+                                           const float (&ex)[3],
+                                           const float (&ey)[3],
+                                           const float (&ez)[3],
+                                           const Neighbours& n, float dxi,
+                                           float dyi, float dzi) {
+  float fx[3], fy[3], fz[3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    fx[s] = load(f + n.zo[1] + n.yo[1] + n.xi[s]);
+    fy[s] = load(f + n.zo[1] + n.yo[s] + n.i);
+    fz[s] = load(f + n.zo[s] + n.yo[1] + n.i);
+  }
+  return diff_term(fx, ex, dxi) + diff_term(fy, ey, dyi) +
+         diff_term(fz, ez, dzi);
+}
+
+// Walks the thread's z strip, calling body(neighbours, ex, ey, ez) per point.
+template <typename T, typename Body>
+__device__ __forceinline__ void walk(const T* __restrict__ evisc, int nz,
+                                     int ny, int nx, int gx, int gy, int gz,
+                                     Body body) {
+  int bx, by, bz;
+  unravel(blockIdx.x, gx, gy, gz, bx, by, bz);
+  Neighbours n;
+  n.i = bx * BLOCK_SIZE_X + threadIdx.x;
+  const int j = by * BLOCK_SIZE_Y + threadIdx.y;
+  if (n.i >= nx || j >= ny) return;
+  const int k0 = (bz * BLOCK_SIZE_Z + threadIdx.z) * TILE_FACTOR_Z;
+  const long long sz = static_cast<long long>(ny) * nx;
+#pragma unroll
+  for (int s = -1; s <= 1; ++s) {
+    n.xi[1 + s] = wrap(n.i + s, nx);
+    n.yo[1 + s] = static_cast<long long>(wrap(j + s, ny)) * nx;
+  }
+#pragma unroll
+  for (int t = 0; t < TILE_FACTOR_Z; ++t) {
+    const int k = k0 + t;
+    if (k >= nz) break;
+#pragma unroll
+    for (int s = -1; s <= 1; ++s) n.zo[1 + s] = wrap(k + s, nz) * sz;
+    float ex[3], ey[3], ez[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      ex[s] = load(evisc + n.zo[1] + n.yo[1] + n.xi[s]);
+      ey[s] = load(evisc + n.zo[1] + n.yo[s] + n.i);
+      ez[s] = load(evisc + n.zo[s] + n.yo[1] + n.i);
+    }
+    body(n, ex, ey, ez, n.zo[1] + n.yo[1] + n.i);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(STENCIL_THREADS, MIN_BLOCKS_PER_SM)
+    diff_uvw_fused_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                          const T* __restrict__ w, const T* __restrict__ evisc,
+                          const float* __restrict__ scal, T* __restrict__ ut,
+                          T* __restrict__ vt, T* __restrict__ wt, int nz,
+                          int ny, int nx, int gx, int gy, int gz) {
+  const float dxi = __ldg(scal), dyi = __ldg(scal + 1), dzi = __ldg(scal + 2);
+  walk<T>(evisc, nz, ny, nx, gx, gy, gz,
+          [&](const Neighbours& n, const float(&ex)[3], const float(&ey)[3],
+              const float(&ez)[3], long long c) {
+            store(ut + c, diff_field(u, ex, ey, ez, n, dxi, dyi, dzi));
+            store(vt + c, diff_field(v, ex, ey, ez, n, dxi, dyi, dzi));
+            store(wt + c, diff_field(w, ex, ey, ez, n, dxi, dyi, dzi));
+          });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(STENCIL_THREADS, MIN_BLOCKS_PER_SM)
+    diff_uvw_single_kernel(const T* __restrict__ f,
+                           const T* __restrict__ evisc,
+                           const float* __restrict__ scal,
+                           T* __restrict__ ft, int nz, int ny, int nx, int gx,
+                           int gy, int gz) {
+  const float dxi = __ldg(scal), dyi = __ldg(scal + 1), dzi = __ldg(scal + 2);
+  walk<T>(evisc, nz, ny, nx, gx, gy, gz,
+          [&](const Neighbours& n, const float(&ex)[3], const float(&ey)[3],
+              const float(&ez)[3], long long c) {
+            store(ft + c, diff_field(f, ex, ey, ez, n, dxi, dyi, dzi));
+          });
+}
+
+template <typename T>
+int launch_fused(const void* u, const void* v, const void* w,
+                 const void* evisc, const void* scal, void* ut, void* vt,
+                 void* wt, int nz, int ny, int nx, cudaStream_t stream) {
+  const StencilGrid g = stencil_grid(nz, ny, nx);
+  const dim3 block(BLOCK_SIZE_X, BLOCK_SIZE_Y, BLOCK_SIZE_Z);
+  diff_uvw_fused_kernel<T><<<static_cast<unsigned int>(g.blocks), block, 0,
+                             stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(v),
+      static_cast<const T*>(w), static_cast<const T*>(evisc),
+      static_cast<const float*>(scal), static_cast<T*>(ut),
+      static_cast<T*>(vt), static_cast<T*>(wt), nz, ny, nx, g.gx, g.gy, g.gz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_single(const void* f, const void* evisc, const void* scal,
+                  void* ft, int nz, int ny, int nx, cudaStream_t stream) {
+  const StencilGrid g = stencil_grid(nz, ny, nx);
+  const dim3 block(BLOCK_SIZE_X, BLOCK_SIZE_Y, BLOCK_SIZE_Z);
+  diff_uvw_single_kernel<T><<<static_cast<unsigned int>(g.blocks), block, 0,
+                              stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(evisc),
+      static_cast<const float*>(scal), static_cast<T*>(ft), nz, ny, nx, g.gx,
+      g.gy, g.gz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t.
+extern "C" int diff_uvw_fused(int dtype, const void* u, const void* v,
+                              const void* w, const void* evisc,
+                              const void* scal, void* ut, void* vt, void* wt,
+                              int nz, int ny, int nx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fused<float>(u, v, w, evisc, scal, ut, vt, wt, nz, ny, nx,
+                               s);
+  if (dtype == 1)
+    return launch_fused<__nv_bfloat16>(u, v, w, evisc, scal, ut, vt, wt, nz,
+                                       ny, nx, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int diff_uvw_single(int dtype, const void* f, const void* evisc,
+                               const void* scal, void* ft, int nz, int ny,
+                               int nx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_single<float>(f, evisc, scal, ft, nz, ny, nx, s);
+  if (dtype == 1)
+    return launch_single<__nv_bfloat16>(f, evisc, scal, ft, nz, ny, nx, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

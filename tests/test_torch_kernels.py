@@ -1,0 +1,257 @@
+"""The port's kernels against the JAX package's.
+
+These tests give the port's kernels CPU tensors, so they run their plain
+PyTorch versions; each is held to ``repro.kernels.ref`` at
+``tests/test_kernels.py``'s shapes, and once per kernel to the Pallas kernel
+in interpret mode. The same
+inputs, made with numpy from a seed, go to both packages. Tolerances are the
+tuner's (``repro.tuner.runner._tolerances``): 1e-5 in float32 with the
+absolute part scaled by max|ref|, 2e-2 in bfloat16, compared in float32 after
+identical bf16 inputs. The CUDA kernels themselves are checked on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import args_meta as repro_args_meta
+from repro.core import get_kernel as repro_kernel
+from repro.kernels import ref as repro_ref
+
+from repro_torch.core import args_meta, get_kernel, to_torch
+from repro_torch.kernels import _build, advec_u, diff_uvw, matmul, ref
+
+REPO = Path(__file__).resolve().parent.parent
+
+# The tensors here are small: one intra-op thread keeps these tests off
+# the cores that parallel test workers need.
+torch.set_num_threads(1)
+SCAL = np.array([[1.1, 0.9, 1.3, 0.0]], np.float32)
+STENCIL_SHAPES = [(8, 8, 128), (16, 32, 128), (32, 16, 256), (32, 32, 128)]
+MATMUL_SHAPES = [(128, 128, 256), (256, 512, 128), (64, 128, 1024)]
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _arrays(rng, shapes, dtype, square=()):
+    """numpy inputs in ``dtype`` (bf16 as ml_dtypes), drawn in f32."""
+    out = []
+    for i, shape in enumerate(shapes):
+        x = rng.standard_normal(shape).astype(np.float32)
+        if i in square:
+            x = x ** 2
+        out.append(np.asarray(jnp.asarray(x, dtype)))
+    return out
+
+
+def _port(arrays, dtype):
+    return [to_torch(a, dtype) for a in arrays]
+
+
+def _assert_close(got, want, dtype):
+    """got: torch tensor(s); want: array(s). Compared in float32/64."""
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    assert len(got) == len(want)
+    tol = TOL[dtype]
+    for g, w in zip(got, want):
+        g = g.to(torch.float64).numpy()
+        w = np.asarray(w, np.float64)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_advec_u_plain_matches_repro(rng, shape, dtype):
+    u, v, w = _arrays(rng, [shape] * 3, dtype)
+    want = repro_ref.advec_u_ref(u, v, w, SCAL)
+    got = advec_u.launch(advec_u.builder.default_config(),
+                         *_port([u, v, w], dtype), torch.from_numpy(SCAL))
+    assert got.dtype == to_torch(np.asarray(want), dtype).dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_diff_uvw_plain_matches_repro(rng, shape, dtype, fuse):
+    u, v, w, e = _arrays(rng, [shape] * 4, dtype, square=(3,))
+    want = repro_ref.diff_uvw_ref(u, v, w, e, SCAL)
+    b = get_kernel("diff_uvw")
+    args = [*_port([u, v, w, e], dtype), torch.from_numpy(SCAL)]
+    fn = b.make(b.default_config() | {"fuse_outputs": fuse}, args_meta(*args))
+    _assert_close(fn(*args), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_diff_uvw_fused_and_single_agree(rng, dtype):
+    u, v, w, e = _port(_arrays(rng, [(16, 32, 128)] * 4, dtype, square=(3,)),
+                       dtype)
+    scal = torch.from_numpy(SCAL)
+    cfg = diff_uvw.builder.default_config()
+    fused = diff_uvw.launch_fused(cfg, u, v, w, e, scal)
+    single = [diff_uvw.launch_single(cfg, f, e, scal) for f in (u, v, w)]
+    for a, b in zip(fused, single):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", MATMUL_SHAPES)
+def test_matmul_plain_matches_repro(rng, mnk, dtype):
+    m, n, k = mnk
+    a, b = _arrays(rng, [(m, k), (k, n)], dtype)
+    want = repro_ref.matmul_ref(a, b)
+    got = matmul.launch(matmul.builder.default_config(), *_port([a, b], dtype))
+    assert got.shape == (m, n)
+    _assert_close(got, want, dtype)
+
+
+INTERPRET_CASES = {
+    # name: (argument shapes, indices squared, repro config update)
+    "advec_u": ([(8, 8, 128)] * 3, (), {"block_z": 4, "block_y": 8}),
+    "diff_uvw": ([(8, 8, 128)] * 4, (3,), {"block_z": 4, "block_y": 8}),
+    "matmul": ([(128, 256), (256, 128)], (), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INTERPRET_CASES))
+def test_plain_matches_pallas_interpret(rng, name):
+    """One small shape per kernel against the Pallas kernel itself."""
+    shapes, square, upd = INTERPRET_CASES[name]
+    arrays = _arrays(rng, shapes, "float32", square=square)
+    if name != "matmul":
+        arrays.append(SCAL)
+    rb = repro_kernel(name)
+    pallas = rb.make(rb.default_config() | upd, repro_args_meta(*arrays),
+                     interpret=True)(*arrays)
+    port_args = [to_torch(a, "float32") for a in arrays]
+    b = get_kernel(name)
+    got = b.make(b.default_config(), args_meta(*port_args))(*port_args)
+    _assert_close(got, pallas, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw", "matmul"])
+def test_probe_args_bit_identical_to_repro(name, dtype):
+    problem = (256, 128, 64) if name == "matmul" else (8, 16, 32)
+    want = repro_kernel(name).make_probe_args(problem, dtype)
+    got = get_kernel(name).make_probe_args(problem, dtype)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w_t = to_torch(w, "float32" if w.dtype == np.float32 else dtype)
+        assert g.dtype == w_t.dtype and torch.equal(g, w_t)
+
+
+def test_kernel_modules_import_without_toolchain():
+    """No nvcc and no triton on PATH: every kernel module still imports,
+    and importing builds nothing."""
+    code = ("import importlib, pkgutil, sys, repro_torch.kernels as k\n"
+            "for m in pkgutil.iter_modules(k.__path__):\n"
+            "    importlib.import_module('repro_torch.kernels.' + m.name)\n"
+            "assert 'triton' not in sys.modules\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._LOADED\n")
+    env = dict(os.environ, PATH="/nonexistent", PYTHONPATH=str(REPO / "src"),
+               CUDA_HOME="/nonexistent")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("source", ["advec_u.cu", "diff_uvw.cu", "matmul.cu"])
+def test_build_command_targets_sm_90a(source):
+    defines = (("BLOCK_M", 64),)
+    out = _build.library_path(source, defines)
+    cmd = _build.nvcc_command(source, defines, out)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC", "-DBLOCK_M=64"):
+        assert flag in cmd
+    assert str(_build.CSRC / source) in cmd
+    assert out.parent == _build.BUILD_DIR
+    # the output is keyed by source, defines and flags
+    assert out != _build.library_path(source, (("BLOCK_M", 128),))
+    assert (_build.CSRC / source).exists()
+
+
+def _cpu_args(name):
+    g = torch.Generator().manual_seed(0)
+    scal = torch.from_numpy(SCAL)
+    if name == "matmul":
+        return [torch.randn(32, 48, generator=g), torch.randn(48, 16, generator=g)]
+    n = 3 if name == "advec_u" else 4
+    return [torch.randn(8, 8, 16, generator=g) for _ in range(n)] + [scal]
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw", "matmul"])
+def test_cpu_launch_never_invokes_the_builder(monkeypatch, name, fuse):
+    def refuse(*a, **k):
+        raise AssertionError("the builder ran for a CPU tensor")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    before = {k: v.launches for k, v in _build.CUDA_KERNELS.items()}
+    b = get_kernel(name)
+    cfg = b.default_config()
+    if name == "diff_uvw":
+        cfg["fuse_outputs"] = fuse
+    args = _cpu_args(name)
+    out = b.make(cfg, args_meta(*args))(*args)
+    want = b.make_reference()(*args)
+    assert all(torch.equal(o, w) for o, w in zip(
+        out if isinstance(out, tuple) else [out],
+        want if isinstance(want, tuple) else [want]))
+    assert {k: v.launches for k, v in _build.CUDA_KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw", "matmul"])
+def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch, name):
+    """A tensor that is not on the CPU (here on the meta device, as a
+    stand-in for one on a card) gets the kernel or an error, never the
+    plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    for fn in ("advec_u_ref", "diff_uvw_ref", "diff_one_ref", "matmul_ref"):
+        monkeypatch.setattr(ref, fn, refuse)
+    args = [a.to("meta") for a in _cpu_args(name)]
+    b = get_kernel(name)
+    fn = b.make(b.default_config(), args_meta(*args))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*args)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "noncontiguous", "scal"])
+def test_stencil_wrapper_rejects_bad_arguments(case):
+    u, v, w, scal = _cpu_args("advec_u")
+    if case == "shape":
+        v = torch.zeros(8, 8, 8)
+    elif case == "dtype":
+        v = v.double()
+    elif case == "noncontiguous":
+        v = v.transpose(0, 2).contiguous().transpose(0, 2)
+    else:
+        scal = scal.double()
+    with pytest.raises(ValueError):
+        advec_u.launch(advec_u.builder.default_config(), u, v, w, scal)
+
+
+def test_space_bounds_threads_per_block():
+    for name in ("advec_u", "diff_uvw"):
+        space = get_kernel(name).space
+        for cfg in space.sample(np.random.default_rng(1), 200):
+            threads = (cfg["block_size_x"] * cfg["block_size_y"]
+                       * cfg["block_size_z"])
+            assert 32 <= threads <= 1024
+            assert threads * cfg["min_blocks_per_sm"] <= 2048
+        assert space.is_valid(space.default_config())
