@@ -7,23 +7,35 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 
 1. environment: torch, CUDA and nvcc versions, the card's name, capability
    (must be 9.0) and power limit;
-2. build every kernel of the path from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source and config, all started together) and hold each CUDA
-   kernel against its plain PyTorch version on the card: the small test
+2. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source and config, all started together) and hold each
+   CUDA kernel against its plain PyTorch version on the card: the small test
    shapes in float32 and bfloat16 at three configs, the MicroHH grids 256^3
-   and 512^3, matmul at 512 x 1024 x 512 and 8192^3;
+   and 512^3, matmul at 512 x 1024 x 512 and 8192^3, flash attention at
+   GQA 4/4, 4/2 and 8/1, causal and full, S 256 and 512, D 128, and at the
+   LM slice's prefill shape BH 128 x S 2048 x D 128 in bfloat16;
 3. the quickstart loop: matmul 512 x 1024 x 512 float32, capture -> wall-clock
    tune (bayes) -> relaunch in tier "exact", equal to the first launch;
 4. the MicroHH loop: tune advec_u and diff_uvw at 256^3 in float32 and
    bfloat16, select each in tier "exact", then launch both at 512^3 through a
    fallback tier and check them against their plain versions;
-5. times from CUDA events beside each kernel's bound, its plain version's
-   time and, for matmul, torch.matmul's.
+5. the LM slice on codeqwen1.5-7b at full width: (a) in float32 with 2
+   layers, prefill logits (flash kernel) against the same prompt fed token
+   by token through decode_step; (b) in bfloat16 with all 32 layers, prefill
+   4 x 2048 tokens (32 flash launches each) and 32 greedy decode steps;
+   (c) bfloat16 prefill of 256 tokens against decode_step; (d) capture the
+   prefill's attention launch, tune it (8 evaluations), and the next
+   prefill selects tier "exact"; (e) ServeEngine in token mode answers 8
+   requests;
+6. times from CUDA events beside each kernel's bound, its plain version's
+   time and, for matmul and flash attention, the library call's; flash
+   attention at the slice shape in every config of its space.
 
-Launch counts are set to 0 just before phases 3-4 and read just after; every
-kernel must have launched there. The last two lines are the ``kernels`` JSON
-and ``{"ok": true, "device": ...}``. With no card, or without the rest of the
-repository beside it, the script exits non-zero and prints no result.
+Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
+read just after; every kernel of the path must have launched there. The
+last two lines are the ``kernels`` JSON and ``{"ok": true, "device": ...}``.
+With no card, or without the rest of the repository beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,18 +44,30 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import get_kernel  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core import (current_device_kind, get_kernel,  # noqa: E402
+                              list_captures)
+from repro_torch.core.capture import CAPTURE_DIR_ENV, CAPTURE_ENV  # noqa: E402
+from repro_torch.core.wisdom import WISDOM_DIR_ENV  # noqa: E402
 from repro_torch.examples import quickstart, tune_microhh  # noqa: E402
-from repro_torch.kernels import _build, advec_u, diff_uvw, matmul, ref  # noqa: E402
+from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
+                                 flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.tuner import tune_capture  # noqa: E402
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
@@ -67,14 +91,42 @@ MATMUL_CONFIGS = [
     {"block_m": 128, "block_n": 32, "block_k": 32, "grid_order": "nmk"},
     {"block_m": 128, "block_n": 128, "block_k": 8},
 ]
+FA_CONFIGS = [
+    {},
+    {"block_q": 128, "block_k": 32, "threads": 128},
+    {"block_q": 32, "block_k": 128, "threads": 64},
+]
+FA_GQA = [(4, 4), (4, 2), (8, 1)]
+FA_SEQ = (256, 512)
+FA_HEAD_DIM = 128
 TPU_KERNELS = {   # CUDA kernel -> the Pallas call it replaces
     "advec_u": "src/repro/kernels/advec_u.py:91",
     "diff_uvw_fused": "src/repro/kernels/diff_uvw.py:111",
     "diff_uvw_single": "src/repro/kernels/diff_uvw.py:126",
     "matmul": "src/repro/kernels/matmul.py:137",
+    "flash_attention": "src/repro/kernels/flash_attention.py:123",
 }
 SOURCES = {"advec_u": "advec_u.cu", "diff_uvw_fused": "diff_uvw.cu",
-           "diff_uvw_single": "diff_uvw.cu", "matmul": "matmul.cu"}
+           "diff_uvw_single": "diff_uvw.cu", "matmul": "matmul.cu",
+           "flash_attention": "flash_attention.cu"}
+#: The CUDA kernels each main path must launch.
+LOOP_KERNELS = ("advec_u", "diff_uvw_fused", "diff_uvw_single", "matmul")
+LM_KERNELS = ("flash_attention",)
+
+# The LM slice: codeqwen1.5-7b at full width and depth, random weights.
+LM_ARCH = "codeqwen1.5-7b"
+LM_BATCH, LM_SEQ, LM_DECODE = 4, 2048, 32
+#: (a) float32 prefill (flash kernel) vs decode_step (plain attention):
+#: both IEEE float32, summed in other orders over 4096-wide products.
+LM_F32_TOL = 1e-3
+#: (c) bfloat16 over 32 layers: 8-bit mantissas round at every product,
+#: norm and residual add of every layer, and prefill and decode round at
+#: other places (the flash kernel rounds P to bf16; decode attention
+#: rounds p). Max abs error within this share of max(1, max|ref|), and
+#: relative L2 error within it too. The sound kernel reads about 0.02 on
+#: both; chip_fault_check.py plants faults in the flash kernel and shows
+#: that they read above this bound.
+LM_BF16_TOL = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -113,9 +165,16 @@ def matrices(m: int, n: int, k: int, dtype: str, seed: int = 0):
 
 # ------------------------------------------------- kernels and plain versions
 
+def qkv(bh: int, bhkv: int, s: int, d: int, dtype: str, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(DTYPES[dtype])
+            for shape in ((bh, s, d), (bhkv, s, d), (bhkv, s, d))]
+
+
 def kernel_cfg(name: str, upd: dict) -> dict:
     """The default config of CUDA kernel ``name`` updated by ``upd``."""
-    if name in ("advec_u", "matmul"):
+    if name in ("advec_u", "matmul", "flash_attention_causal",
+                "flash_attention_full"):
         return get_kernel(name).default_config() | upd
     return get_kernel("diff_uvw").default_config() | upd | {
         "fuse_outputs": name == "diff_uvw_fused"}
@@ -134,25 +193,42 @@ def calls(name: str, cfg: dict, args):
         return (lambda: tuple(diff_uvw.launch_single(cfg, f, e, s)
                               for f in (u, v, w)),
                 lambda: tuple(ref.diff_one_ref(f, e, s) for f in (u, v, w)))
+    if name.startswith("flash_attention"):
+        causal = name == "flash_attention_causal"
+        return (lambda: flash_attention.launch(cfg, *args, causal=causal),
+                lambda: ref.flash_attention_ref_factory(causal)(*args))
     return (lambda: matmul.launch(cfg, *args), lambda: ref.matmul_ref(*args))
 
 
 def compare(name: str, cfg: dict, args, dtype: str, label: str,
-            verbose: bool = True) -> float:
+            verbose: bool = True) -> dict:
     """Run the kernel and its plain version on ``args``; raise unless they
-    agree within the tuner's tolerance for ``dtype``. Returns the max
-    absolute error."""
+    agree within the tuner's tolerance for ``dtype`` and, for flash
+    attention, within ``flash_attention.ROW_L2_TOL`` row by row. Returns
+    the max absolute error and, for flash attention, max|ref| and the
+    largest relative L2 error of a row."""
     kernel, plain = calls(name, cfg, args)
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
     out = verify_outcome(got, want, dtype)
     check(out.ok, f"{name} {label} {dtype} {cfg}: {out.error}")
+    res = {"max_abs_err": out.max_err}
+    extra = ""
+    if name.startswith("flash_attention"):
+        res["max_abs_ref"] = float(want.abs().max())
+        res["row_l2_err"] = flash_attention.row_l2_error(got, want)
+        check(res["row_l2_err"] <= flash_attention.ROW_L2_TOL[dtype],
+              f"{name} {label} {dtype} {cfg}: row relative L2 error "
+              f"{res['row_l2_err']:.3e} > {flash_attention.ROW_L2_TOL[dtype]}")
+        extra = (f" max|ref|={res['max_abs_ref']:.3g} row_l2_err="
+                 f"{res['row_l2_err']:.3e} (tol "
+                 f"{flash_attention.ROW_L2_TOL[dtype]:g})")
     if verbose:
         print(f"check {name:16s} {label:14s} {dtype:8s} max_abs_err="
-              f"{out.max_err:.3e} {tolerance(dtype)} ok config={cfg}",
+              f"{out.max_err:.3e} {tolerance(dtype)}{extra} ok config={cfg}",
               flush=True)
-    return out.max_err
+    return res
 
 
 def tolerance(dtype: str) -> str:
@@ -202,8 +278,13 @@ def bound(nbytes: float, flops: float, op_dtype: str) -> tuple[float, str]:
 def work(name: str, shape, dtype: str) -> tuple[float, float]:
     """(bytes, flops) the function must move and do: each input read once,
     each output written once. diff_uvw_single is three launches, each
-    reading one field and evisc and writing one tendency."""
+    reading one field and evisc and writing one tendency. Causal attention
+    needs the S(S+1)/2 (query, key) pairs at or below the diagonal, two
+    products of D multiply-adds each."""
     b = BYTES[dtype]
+    if name == "flash_attention_causal":
+        bh, bhkv, s, d = shape
+        return (2 * bh + 2 * bhkv) * s * d * b, 4.0 * bh * d * s * (s + 1) / 2
     if name == "matmul":
         m, n, k = shape
         return (m * k + k * n + m * n) * b, 2.0 * m * n * k
@@ -225,20 +306,31 @@ def library_call(a, b):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def sdpa_call(q, k, v):
+    """scaled_dot_product_attention, causal: the yardstick, never used by
+    the port. q, k, v are (BH, S, D) with BH == BHkv."""
+    return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                          is_causal=True)[0]
+
+
+LIBRARY = {"matmul": library_call, "flash_attention_causal": sdpa_call}
+
+
 def timing_row(name: str, shape, dtype: str, configs: dict, args) -> dict:
-    """Times of each named config, the plain version and (matmul) the
-    library call, beside the bound; printed and returned."""
+    """Times of each named config, the plain version and (matmul, flash
+    attention) the library call, beside the bound; printed and returned."""
     row = {"kernel": name, "shape": list(shape), "dtype": dtype}
     for label, cfg in configs.items():
         row[f"{label}_ms"] = time_ms(calls(name, cfg, args)[0])
     row["plain_ms"] = time_ms(calls(name, next(iter(configs.values())),
                                     args)[1], reps=3)
-    row["library_ms"] = (time_ms(lambda: library_call(*args))
-                         if name == "matmul" else None)
+    lib = LIBRARY.get(name)
+    row["library_ms"] = time_ms(lambda: lib(*args)) if lib else None
     nbytes, flops = work(name, shape, dtype)
     # the stencils compute in float32 whatever dtype they store
     row["bound_ms"], row["bound_by"] = bound(
-        nbytes, flops, dtype if name == "matmul" else "float32")
+        nbytes, flops, "float32" if name in ("advec_u", "diff_uvw_fused",
+                                             "diff_uvw_single") else dtype)
     print("time " + json.dumps(row), flush=True)
     return row
 
@@ -267,6 +359,14 @@ def phase_build() -> None:
         specs += [("advec_u.cu", d), ("diff_uvw.cu", d)]
     specs += [("matmul.cu", matmul._defines(kernel_cfg("matmul", u)))
               for u in MATMUL_CONFIGS]
+    # every causal config at D = 128 (the LM tuning phase picks among them)
+    # and the full-mask test configs
+    specs += [("flash_attention.cu",
+               flash_attention.defines(c, True, FA_HEAD_DIM))
+              for c in get_kernel("flash_attention_causal").space.enumerate()]
+    specs += [("flash_attention.cu", flash_attention.defines(
+        kernel_cfg("flash_attention_full", u), False, FA_HEAD_DIM))
+        for u in FA_CONFIGS]
     secs = _build.build_many(specs)
     print(f"built {len(specs)} libraries with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {secs:.1f}s (parallel)",
@@ -289,7 +389,7 @@ def phase_kernels() -> dict:
                             else STENCIL_CONFIGS):
                     errs.append(compare(name, kernel_cfg(name, upd), args,
                                         dtype, "x".join(map(str, shape)),
-                                        verbose=False))
+                                        verbose=False)["max_abs_err"])
             print(f"check {name:16s} {len(errs)} cases ({len(shapes)} test "
                   f"shapes x 3 configs) {dtype:8s} max_abs_err="
                   f"{max(errs):.3e} {tolerance(dtype)} ok", flush=True)
@@ -298,17 +398,37 @@ def phase_kernels() -> dict:
             for name in ("advec_u", "diff_uvw_fused", "diff_uvw_single"):
                 args = stencil_args(name, (g, g, g), dtype)
                 err = compare(name, kernel_cfg(name, {}), args, dtype,
-                              f"{g}^3")
+                              f"{g}^3")["max_abs_err"]
                 if g == 512 and dtype == "float32":
                     headline[name] = err
                 del args
         args = matrices(512, 512, 1024, dtype)
         err = compare("matmul", kernel_cfg("matmul", {}), args, dtype,
-                      "m512n512k1024")
+                      "m512n512k1024")["max_abs_err"]
         if dtype == "float32":
             headline["matmul"] = err
     compare("matmul", kernel_cfg("matmul", {}),
             matrices(8192, 8192, 8192, "float32"), "float32", "m=n=k=8192")
+    for dtype in DTYPES:
+        for name in ("flash_attention_causal", "flash_attention_full"):
+            errs = []
+            for hq, hkv in FA_GQA:
+                for s in FA_SEQ:
+                    args = qkv(hq, hkv, s, FA_HEAD_DIM, dtype)
+                    for upd in FA_CONFIGS:
+                        errs.append(compare(name, kernel_cfg(name, upd), args,
+                                            dtype, f"gqa{hq}/{hkv} s{s}",
+                                            verbose=False))
+            print(f"check {name:16s} {len(errs)} cases (GQA 4/4, 4/2, 8/1 x "
+                  f"S 256, 512 x D 128 x 3 configs) {dtype:8s} max_abs_err="
+                  f"{max(e['max_abs_err'] for e in errs):.3e} "
+                  f"{tolerance(dtype)} row_l2_err="
+                  f"{max(e['row_l2_err'] for e in errs):.3e} (tol "
+                  f"{flash_attention.ROW_L2_TOL[dtype]:g}) ok", flush=True)
+    headline["flash_attention"] = compare(
+        "flash_attention_causal", kernel_cfg("flash_attention_causal", {}),
+        qkv(128, 128, LM_SEQ, FA_HEAD_DIM, "bfloat16"), "bfloat16",
+        "BH128 S2048 D128")["max_abs_err"]
     torch.cuda.empty_cache()
     return headline
 
@@ -326,11 +446,255 @@ def phase_main_path() -> tuple[dict, dict, dict]:
     for name, dtype, st, _ in mh["launched"]:
         check(st.tier not in ("exact", "default", "forced"),
               f"{name} 512^3 {dtype}: tier {st.tier} is not a fallback")
-    counts = {k: v.launches for k, v in _build.CUDA_KERNELS.items()}
+    counts = {k: _build.CUDA_KERNELS[k].launches for k in LOOP_KERNELS}
     print(f"main-path launches: {json.dumps(counts)}", flush=True)
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
     return qs, mh, counts
+
+
+# ------------------------------------------------------------------ LM slice
+
+def lm_tokens(b: int, s: int, vocab: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=g, device="cuda")
+
+
+def feed(model, params, tokens: torch.Tensor, max_seq: int) -> torch.Tensor:
+    """The last logits of ``tokens`` fed one at a time through decode_step
+    (plain decode attention: no flash launch)."""
+    cache = model.init_cache(tokens.shape[0], max_seq)
+    for i in range(tokens.shape[1]):
+        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
+    return logits
+
+
+def logit_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    return {"max_abs_err": float((g - w).abs().max()),
+            "max_abs_ref": float(w.abs().max()),
+            "rel_l2_err": float((g - w).norm() / w.norm()),
+            "same_argmax": bool(torch.equal(g.argmax(-1), w.argmax(-1)))}
+
+
+def lm_bf16_ok(err: dict) -> bool:
+    """Check (c)'s acceptance of :func:`logit_errors` readings."""
+    return (err["max_abs_err"] <= LM_BF16_TOL * max(1.0, err["max_abs_ref"])
+            and err["rel_l2_err"] <= LM_BF16_TOL)
+
+
+def n_elements(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_elements(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_elements(v) for v in tree)
+    return tree.numel()
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_profile(fn, label: str, steps: int = 1, top: int = 6) -> dict:
+    """Run ``fn`` under torch.profiler: the device's kernel time per step,
+    the window's host time per step (profiler overhead included) and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    res = {"device_ms_per_step": busy / steps,
+           "profiled_wall_ms_per_step": wall * 1e3 / steps,
+           "top": [(e.key[:70], round(e.self_device_time_total / 1e3
+                                      / steps, 4)) for e in kernels[:top]]}
+    if not kernels:
+        print(f"profile {label}: the profiler saw no device kernels; "
+              f"device time not measured", flush=True)
+    else:
+        print(f"profile {label}: device kernels {res['device_ms_per_step']:.2f}"
+              f" ms/step, profiled host window "
+              f"{res['profiled_wall_ms_per_step']:.2f} ms/step; top kernels "
+              f"(ms/step): {json.dumps(res['top'])}", flush=True)
+    return res
+
+
+def lm_f32_check(fa) -> dict:
+    """(a) full width in float32 with 2 layers: prefill (flash kernel)
+    against decode_step (plain attention) on one 256-token prompt."""
+    cfg = replace(get_arch(LM_ARCH), n_layers=2, param_dtype="float32",
+                  compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    tok = lm_tokens(1, 256, cfg.vocab, seed=1)
+    n0 = fa.launches
+    pre, _ = model.prefill(params, tok, model.init_cache(1, 256))
+    check(fa.launches - n0 == cfg.n_layers,
+          f"f32 prefill launched flash {fa.launches - n0} times, want 2")
+    err = logit_errors(pre, feed(model, params, tok, 256))
+    check(err["max_abs_err"] <= LM_F32_TOL * max(1.0, err["max_abs_ref"]),
+          f"(a) f32 prefill vs decode: {err}")
+    print(f"lm (a) {LM_ARCH} full width, 2 layers, float32, 256 tokens: "
+          f"prefill (flash) vs decode_step {json.dumps(err)} tol "
+          f"{LM_F32_TOL:g} x max(1, max|ref|) ok", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_lm() -> dict:
+    """The LM slice on the card; returns what it measured."""
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    out = {"f32": lm_f32_check(fa)}
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(lambda: model.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    n_params = n_elements(params)
+    print(f"lm {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in {cfg.param_dtype} "
+          f"(ArchConfig.n_params {cfg.n_params() / 1e9:.3f} B + QKV biases),"
+          f" initialised on the card in {init_s:.1f} s", flush=True)
+
+    # (b) full depth: prefill 4 x 2048, then 32 greedy decode steps
+    tok = lm_tokens(LM_BATCH, LM_SEQ, cfg.vocab, seed=2)
+    prefill_s = []
+    for _ in range(3):          # the first is a warm-up
+        cache = model.init_cache(LM_BATCH, LM_SEQ + LM_DECODE)
+        n0 = fa.launches
+        (logits, cache), sec = timed(lambda: model.prefill(params, tok,
+                                                           cache))
+        check(fa.launches - n0 == cfg.n_layers,
+              f"prefill launched flash {fa.launches - n0} times, want "
+              f"{cfg.n_layers}")
+        prefill_s.append(sec)
+    check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "prefill logits not finite or of the wrong shape")
+    nxt = logits[:, -1].argmax(-1, keepdim=True)
+
+    def decode():
+        nonlocal cache, nxt
+        for _ in range(LM_DECODE):
+            lg, cache = model.decode_step(params, cache, nxt)
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+        return lg
+
+    lg, dec_s = timed(decode)
+    check(cache["pos"] == LM_SEQ + LM_DECODE
+          and bool(torch.isfinite(lg[..., :cfg.vocab]).all()),
+          "decode logits not finite, or the cursor is wrong")
+    out["prefill_ms"] = statistics.median(prefill_s[1:]) * 1e3
+    out["prefill_tok_s"] = LM_BATCH * LM_SEQ / (out["prefill_ms"] / 1e3)
+    out["decode_ms_per_step"] = dec_s / LM_DECODE * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm (b) {LM_ARCH} bf16 x {cfg.n_layers} layers: prefill "
+          f"{LM_BATCH} x {LM_SEQ} tokens in {out['prefill_ms']:.1f} ms "
+          f"({out['prefill_tok_s']:.0f} tokens/s; runs "
+          f"{[round(x * 1e3, 1) for x in prefill_s]} ms, the first a "
+          f"warm-up), flash +{cfg.n_layers} launches per prefill; "
+          f"{LM_DECODE} greedy decode steps at batch {LM_BATCH} in "
+          f"{out['decode_ms_per_step']:.2f} ms/step; peak device memory "
+          f"{out['peak_gb']:.1f} GB", flush=True)
+    del cache, logits, lg
+
+    # where the time goes: one prefill and 4 decode steps under the profiler
+    state = {"cache": model.init_cache(LM_BATCH, LM_SEQ + 4)}
+
+    def prefill_once():
+        state["logits"], state["cache"] = model.prefill(params, tok,
+                                                        state["cache"])
+
+    def decode_4():
+        for _ in range(4):
+            nxt = state["logits"][:, -1].argmax(-1, keepdim=True)
+            state["logits"], state["cache"] = model.decode_step(
+                params, state["cache"], nxt)
+
+    out["profile_prefill"] = device_profile(prefill_once, "prefill 4 x 2048")
+    out["profile_decode"] = device_profile(decode_4, "decode batch 4",
+                                           steps=4)
+    busy = out["profile_decode"]["device_ms_per_step"]
+    print(f"lm decode: device busy {busy:.2f} of "
+          f"{out['decode_ms_per_step']:.2f} ms/step unprofiled "
+          f"({busy / out['decode_ms_per_step']:.0%}); prefill: device busy "
+          f"{out['profile_prefill']['device_ms_per_step']:.1f} of "
+          f"{out['prefill_ms']:.1f} ms", flush=True)
+    del state
+
+    # (c) bf16 consistency: prefill vs decode_step on 256 tokens
+    tok_c = lm_tokens(1, 256, cfg.vocab, seed=3)
+    pre, _ = model.prefill(params, tok_c, model.init_cache(1, 256))
+    err = logit_errors(pre, feed(model, params, tok_c, 256))
+    check(lm_bf16_ok(err), f"(c) bf16 prefill vs decode: {err}")
+    out["bf16"] = err
+    print(f"lm (c) bf16 x {cfg.n_layers} layers, 256 tokens: prefill "
+          f"(flash) vs decode_step {json.dumps(err)} tol {LM_BF16_TOL:g} "
+          f"(max abs, x max(1, max|ref|); and relative L2) ok", flush=True)
+
+    # (d) capture the prefill's attention launch, tune it, select "exact"
+    with tempfile.TemporaryDirectory(prefix="kl-lm-") as tmp:
+        one = build_model(replace(cfg, n_layers=1))
+        with quickstart._env(**{CAPTURE_ENV: "flash_attention_causal",
+                                CAPTURE_DIR_ENV: f"{tmp}/captures"}):
+            one.prefill({**params, "layers": params["layers"][:1]}, tok,
+                        one.init_cache(LM_BATCH, LM_SEQ))
+        caps = list_captures(f"{tmp}/captures")
+        check(len(caps) == 1, f"{len(caps)} captures, want 1")
+        res = tune_capture(caps[0], current_device_kind(), strategy="bayes",
+                           max_evals=8, time_budget_s=120,
+                           wisdom_dir=f"{tmp}/wisdom", device="cuda")
+        with quickstart._env(**{WISDOM_DIR_ENV: f"{tmp}/wisdom"}):
+            ops.reload_wisdom()
+            tiers0 = dict(ops.fa_causal_kernel.tier_counts)
+            _, sec = timed(lambda: model.prefill(
+                params, tok, model.init_cache(LM_BATCH, LM_SEQ)))
+            tiers = {t: n - tiers0.get(t, 0)
+                     for t, n in ops.fa_causal_kernel.tier_counts.items()
+                     if n != tiers0.get(t, 0)}
+        ops.reload_wisdom()
+    check(tiers == {"exact": cfg.n_layers},
+          f"tuned prefill selected {tiers}, want exact x {cfg.n_layers}")
+    out["tuned"] = res.best_config
+    out["tuned_prefill_ms"] = sec * 1e3
+    print(f"lm (d) captured {caps[0].name}, tuned by wall clock: best "
+          f"{res.best_score_us:.1f} us after {len(res.evaluations)} evals -> "
+          f"{res.best_config}; next prefill selected {tiers} in "
+          f"{sec * 1e3:.1f} ms", flush=True)
+
+    # (e) serve: token mode, 8 requests on 4 slots
+    eng = ServeEngine(model, params, n_slots=4, max_seq=256, mode="token")
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 33)),
+                              dtype=np.int32)
+        check(eng.submit(Request(rid, prompt, max_new_tokens=16)),
+              f"request {rid} rejected")
+    rep, sec = timed(eng.run)
+    check(rep.requests_completed == 8 and rep.mode == "token"
+          and all(len(t) == 16 for t in rep.values()),
+          f"serve: {rep.to_json()}")
+    out["serve"] = rep.to_json() | {"seconds": sec,
+                                    "tok_s": 8 * 16 / sec}
+    print(f"lm (e) ServeEngine token mode, 4 slots, max_seq 256: "
+          f"{rep.requests_completed} requests, {rep.steps} steps, occupancy "
+          f"{rep.occupancy}, {8 * 16} tokens in {sec:.2f} s "
+          f"({8 * 16 / sec:.1f} generated tokens/s)", flush=True)
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_times(qs: dict, mh: dict) -> dict:
@@ -368,10 +732,32 @@ def phase_times(qs: dict, mh: dict) -> dict:
     return rows
 
 
+def phase_lm_times(lm: dict) -> dict:
+    """K4 at the shape the LM prefill gives it: (B*H, B*Hkv, S, D)."""
+    cfg = get_arch(LM_ARCH)
+    shape = (LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, LM_SEQ,
+             cfg.d_head)
+    args = qkv(*shape, "bfloat16")
+    row = timing_row(
+        "flash_attention_causal", shape, "bfloat16",
+        {"default": kernel_cfg("flash_attention_causal", {}),
+         "tuned": lm["tuned"]}, args)
+    sweep = [(cfg, time_ms(calls("flash_attention_causal", cfg, args)[0],
+                           reps=5))
+             for cfg in get_kernel("flash_attention_causal").space.enumerate()]
+    sweep.sort(key=lambda x: x[1])
+    print("sweep flash_attention_causal " + json.dumps(
+        [[c["block_q"], c["block_k"], c["threads"], round(ms, 4)]
+         for c, ms in sweep]) + " ([block_q, block_k, threads, ms])",
+          flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # IEEE float32 products
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
@@ -380,10 +766,20 @@ def main() -> int:
           f"plain versions", flush=True)
     qs, mh, counts = phase_main_path()
     print(f"[{time.perf_counter() - t0:.0f}s] main path done", flush=True)
+    _build.reset_launch_counts()
+    lm = phase_lm()
+    lm_counts = {k: _build.CUDA_KERNELS[k].launches for k in LM_KERNELS}
+    print(f"lm-path launches: {json.dumps(lm_counts)}", flush=True)
+    for name, n in lm_counts.items():
+        check(n > 0, f"{name} was not launched on the LM path")
+    counts |= lm_counts
+    print(f"[{time.perf_counter() - t0:.0f}s] LM path done", flush=True)
     rows = phase_times(qs, mh)
+    rows[("flash_attention", 2048, "bfloat16")] = phase_lm_times(lm)
     kernels = []
     for name in TPU_KERNELS:
-        key = (name, 512, "float32")
+        key = ((name, 2048, "bfloat16") if name == "flash_attention"
+               else (name, 512, "float32"))
         row = rows[key]
         kernels.append({
             "name": name, "route": "cuda",

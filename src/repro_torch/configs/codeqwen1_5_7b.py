@@ -1,0 +1,19 @@
+"""codeqwen1.5-7b [dense] — qwen1.5 architecture
+(hf:Qwen/CodeQwen1.5-7B). 32L d_model=4096 32H (kv=32, MHA) d_ff=13440
+vocab=92416; QKV bias."""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_head=128,
+    d_ff=13440,
+    vocab=92416,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)

@@ -12,11 +12,11 @@ from .builder import KernelBuilder
 
 _REGISTRY: dict[str, KernelBuilder] = {}
 
-# Modules that define built-in kernels, imported lazily. Flash attention
-# belongs to the second port slice (ROADMAP.md).
+# Modules that define built-in kernels, imported lazily.
 _BUILTIN_KERNEL_MODULES = (
     "repro_torch.kernels.advec_u",
     "repro_torch.kernels.diff_uvw",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.matmul",
 )
 

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import WisdomKernel, args_meta, get_kernel
-from repro_torch.kernels import _build
+from repro_torch.core import GPU_H100, WisdomKernel, args_meta, get_kernel
+from repro_torch.kernels import _build, flash_attention
 from repro_torch.tuner import WallClockEvaluator, verify_outcome
 
 pytestmark = pytest.mark.gpu
@@ -71,3 +71,98 @@ def test_wallclock_evaluator_on_card(cuda_device):
     r = ev(b.default_config())
     assert r.feasible and r.verified and 0 < r.score_us < 1e6
     assert len(r.info["times_us"]) == 3
+
+
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain_version(cuda_device, dtype, causal,
+                                               head_dim):
+    """GQA 4/2 on a ragged S (200: no config's tiles divide it), the
+    default config and three sampled ones that fit a block's shared memory
+    at this head dim; the tuner's allclose and the row relative L2 bound."""
+    name = "flash_attention_causal" if causal else "flash_attention_full"
+    b = get_kernel(name)
+    args = [a.to(cuda_device)
+            for a in b.make_probe_args((8, 4, 200, head_dim), dtype)]
+    want = b.make_reference()(*args)
+    before = _build.CUDA_KERNELS["flash_attention"].launches
+    fits = [c for c in b.space.enumerate()
+            if flash_attention.smem_bytes(c, head_dim, dtype)
+            <= GPU_H100.smem_per_block]
+    rng = np.random.default_rng(1)
+    configs = [b.default_config(),
+               *(fits[i] for i in rng.choice(len(fits), 3, replace=False))]
+    for cfg in configs:
+        got = b.make(cfg, args_meta(*args))(*args)
+        torch.cuda.synchronize()
+        out = verify_outcome(got, want, dtype)
+        assert out.ok, f"{cfg}: {out.error}"
+        row = flash_attention.row_l2_error(got, want)
+        assert row <= flash_attention.ROW_L2_TOL[dtype], f"{cfg}: {row}"
+    assert _build.CUDA_KERNELS["flash_attention"].launches == \
+        before + len(configs)
+
+
+def test_flash_attention_refused_launch_raises(cuda_device):
+    """A config whose float32 tiles at D=256 need more shared memory than
+    a block may have: the launcher returns the card's refusal, the wrapper
+    raises, and nothing is counted."""
+    b = get_kernel("flash_attention_causal")
+    cfg = {"block_q": 128, "block_k": 128, "threads": 256}
+    assert flash_attention.smem_bytes(cfg, 256, "float32") > \
+        GPU_H100.smem_per_block
+    args = [a.to(cuda_device)
+            for a in b.make_probe_args((2, 2, 128, 256), "float32")]
+    before = _build.CUDA_KERNELS["flash_attention"].launches
+    with pytest.raises(_build.KernelLaunchError):
+        b.make(cfg, args_meta(*args))(*args)
+    assert _build.CUDA_KERNELS["flash_attention"].launches == before
+    out = b.make(b.default_config(), args_meta(*args))(*args)   # still fine
+    torch.cuda.synchronize()
+    assert verify_outcome(out, b.make_reference()(*args), "float32").ok
+
+
+def _small_lm(cuda_device, dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("codeqwen1.5-7b").reduced(
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_head=128,
+        param_dtype=dtype, compute_dtype=dtype)
+    model = build_model(cfg, device=cuda_device)
+    return model, model.init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+
+
+def test_lm_prefill_runs_flash_and_matches_decode(cuda_device):
+    """float32: the prefill's 2 layers launch the flash kernel, and its
+    last logits match the same tokens fed through decode_step (plain
+    attention) within 1e-4 (both IEEE float32)."""
+    model, params = _small_lm(cuda_device, "float32")
+    tokens = torch.randint(0, model.cfg.vocab, (2, 128), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    before = fa.launches
+    pre, cache = model.prefill(params, tokens, model.init_cache(2, 128))
+    assert fa.launches == before + 2 and cache["pos"] == 128
+    cache = model.init_cache(2, 128)
+    for i in range(128):
+        dec, cache = model.decode_step(params, cache, tokens[:, i:i + 1])
+    assert fa.launches == before + 2
+    torch.testing.assert_close(pre, dec, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_engine_on_card(cuda_device):
+    from repro_torch.serve import Request, ServeEngine
+
+    model, params = _small_lm(cuda_device, "bfloat16")
+    eng = ServeEngine(model, params, n_slots=2, max_seq=64)
+    rng = np.random.default_rng(0)
+    for rid in range(4):
+        assert eng.submit(Request(rid, rng.integers(
+            0, model.cfg.vocab, 8 + rid, dtype=np.int32), max_new_tokens=5))
+    rep = eng.run()
+    assert rep.mode == "token" and rep.requests_completed == 4
+    assert all(len(t) == 5 for t in rep.values())

@@ -176,3 +176,15 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           env=env, cwd=REPO)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_fault_check_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(REPO / "chip_fault_check.py")],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=REPO)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
