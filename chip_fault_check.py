@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Plant faults in the flash-attention kernel and read what the checks of
-``chip_smoke.py`` make of them, on one H100.
+"""Plant faults in the flash-attention (K4) and matmul (K3) kernels and read
+what the checks of ``chip_smoke.py`` make of them, on one H100.
 
     python3 chip_fault_check.py
 
-Builds ``csrc/flash_attention.cu`` as it is and two altered copies, in a
-temporary directory (the checkout is not touched):
+Builds the kernels as they are and altered copies, in a temporary directory
+(the checkout is not touched):
 
-* ``no_mask``: the causal build attends to every key (the full mask);
-* ``late_tile``: the query tiles whose diagonal lies in the later half of
-  the keys skip that last k/v tile, a fault confined to late rows.
+* ``no_mask`` (K4): the causal build attends to every key (the full mask);
+* ``late_tile`` (K4): the query tiles whose diagonal lies in the later half
+  of the keys skip that last k/v tile, a fault confined to late rows;
+* ``drop_last_split`` (K3): the split-K reduction skips the last slice;
+* ``early_stage_reuse`` (K3): the bfloat16 body's ring releases a stage,
+  and thread 0 refills it, before the wgmma that reads it has been waited
+  on.
 
-For each it prints two readings, as ``chip_smoke.py`` takes them:
+The readings, as ``chip_smoke.py`` takes them:
 
-1. the K4 check at the LM prefill's shape (BH 128 x S 2048 x D 128,
-   bfloat16, causal, default config): the tuner's allclose and the largest
-   relative L2 error of a row against ``flash_attention.ROW_L2_TOL``;
-2. check (c): codeqwen1.5-7b in bfloat16 with all 32 layers and the same
-   seeded weights, the last logits of a 256-token prefill against the same
-   tokens fed through ``decode_step`` (which runs no flash kernel), against
-   ``chip_smoke.LM_BF16_TOL``.
+1. K4 (sound kernel and K4 faults): the K4 check at the LM prefill's shape
+   (BH 128 x S 2048 x D 128, bfloat16, causal, default config): the
+   tuner's allclose and the largest relative L2 error of a row against
+   ``flash_attention.ROW_L2_TOL``;
+2. check (c) (sound kernel and K4 faults): codeqwen1.5-7b in bfloat16 with
+   all 32 layers and the same seeded weights, the last logits of a
+   256-token prefill against the same tokens fed through ``decode_step``
+   (which runs no flash kernel), against ``chip_smoke.LM_BF16_TOL``;
+3. K3 (sound kernel and K3 faults): phase 2's matmul check at 8192^3 in
+   float32 and bfloat16, every config of ``chip_smoke.MATMUL_CONFIGS``, the
+   tuner's allclose; it passes only if every config does.
 
-Exits non-zero unless the sound kernel passes both checks and every fault
-fails both.
+Exits non-zero unless the sound kernels pass every reading and every fault
+fails each reading of its kernel.
 """
 
 from __future__ import annotations
@@ -37,23 +45,67 @@ import torch
 
 import chip_smoke as smoke
 from repro_torch.configs import get_arch
-from repro_torch.kernels import _build, flash_attention, ref
+from repro_torch.kernels import _build, flash_attention, matmul, ref
 from repro_torch.models import build_model
 from repro_torch.tuner.runner import verify_outcome
 
-#: fault -> (text of csrc/flash_attention.cu, its replacement)
+#: fault -> (source under csrc/, its text to alter, the replacement)
 FAULTS = {
-    "no_mask": ("namespace {\n",
+    "no_mask": ("flash_attention.cu", "namespace {\n",
                 "#undef CAUSAL\n#define CAUSAL 0\nnamespace {\n"),
-    "late_tile": ("  return diag < n ? diag : n;\n",
-                  "  return diag <= n / 2 ? diag : (diag < n ? diag : n) - 1;\n"),
+    "late_tile": ("flash_attention.cu", "  return diag < n ? diag : n;\n",
+                  "  return diag <= n / 2 ? diag"
+                  " : (diag < n ? diag : n) - 1;\n"),
+    "drop_last_split": ("matmul.cu",
+                        "for (int z = 1; z < SPLIT_K; ++z)",
+                        "for (int z = 1; z < SPLIT_K - 1; ++z)"),
+    "early_stage_reuse": ("matmul.cu",
+                          "    wgmma_wait<1>();\n"
+                          "    wgmma_fence_operands<ACC>(acc);\n"
+                          "    const int done = t - 1;\n",
+                          "    wgmma_fence_operands<ACC>(acc);\n"
+                          "    const int done = t;\n"),
 }
+#: The readings each source's faults must fail.
+READINGS = {"flash_attention.cu": ("k4", "lm_c"), "matmul.cu": ("k3",)}
 
 
 def use_source(csrc: Path, build: Path) -> None:
-    """Build and load flash_attention.cu from ``csrc`` from now on."""
+    """Build and load the kernels from ``csrc`` from now on."""
     _build.CSRC, _build.BUILD_DIR = csrc, build
     _build._LOADED.clear()
+
+
+def faulted_copy(sound: Path, tmp: Path, fault: str) -> Path:
+    """A copy of ``sound`` (every .cu and .cuh) with ``fault`` planted."""
+    source, old, new = FAULTS[fault]
+    csrc = tmp / fault
+    csrc.mkdir()
+    for path in [*sound.glob("*.cu"), *sound.glob("*.cuh")]:
+        shutil.copy(path, csrc)
+    text = (sound / source).read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{fault}: the text to alter is not in {source} "
+                           f"once")
+    (csrc / source).write_text(text.replace(old, new))
+    return csrc
+
+
+def k3_reading(big: dict) -> dict:
+    """Phase 2's matmul check at 8192^3: every check config in both dtypes
+    against the plain version's output."""
+    _build.build_many(
+        ("matmul.cu", matmul.defines(c, matmul.plan(c, *smoke.BIG_MATMUL, dt)))
+        for dt in big for c in (smoke.kernel_cfg("matmul", u)
+                                for u in smoke.MATMUL_CONFIGS))
+    cases = {}
+    for dtype, (args, want) in big.items():
+        for u in smoke.MATMUL_CONFIGS:
+            out, body = smoke.matmul_check(smoke.kernel_cfg("matmul", u), args,
+                                           want, dtype)
+            cases[f"{dtype} {body} {json.dumps(u)}"] = {
+                "ok": out.ok, "max_abs_err": out.max_err}
+    return {"ok": all(c["ok"] for c in cases.values()), "cases": cases}
 
 
 def kernel_reading(args) -> dict:
@@ -79,41 +131,44 @@ def main() -> int:
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     tok = smoke.lm_tokens(1, 256, cfg.vocab, seed=3)
     want = smoke.feed(model, params, tok, 256)
+    big = {}
+    for dtype in smoke.DTYPES:
+        ab = smoke.matrices(*smoke.BIG_MATMUL, dtype)
+        big[dtype] = (ab, ref.matmul_ref(*ab))
     readings = {}
-    with tempfile.TemporaryDirectory(prefix="fa-fault-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="kernel-fault-") as tmp:
         for fault in (None, *FAULTS):
             if fault is None:
                 use_source(*sound)
+                checks = ("k4", "lm_c", "k3")
             else:
-                csrc = Path(tmp) / fault
-                csrc.mkdir()
-                text = (sound[0] / "flash_attention.cu").read_text()
-                old, new = FAULTS[fault]
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{fault}: the text to alter is not "
-                                       f"in flash_attention.cu once")
-                (csrc / "flash_attention.cu").write_text(
-                    text.replace(old, new))
-                for extra in sound[0].glob("*.cuh"):
-                    shutil.copy(extra, csrc)
+                csrc = faulted_copy(sound[0], Path(tmp), fault)
                 use_source(csrc, csrc / "build")
+                checks = READINGS[FAULTS[fault][0]]
             name = fault or "sound"
-            k4 = kernel_reading(args)
-            pre, _ = model.prefill(params, tok, model.init_cache(1, 256))
-            lm = smoke.logit_errors(pre, want)
-            lm["ok"] = smoke.lm_bf16_ok(lm)
-            readings[name] = {"k4": k4, "lm_c": lm}
-            print(f"fault {name}: K4 BH128 S2048 D128 bf16 {json.dumps(k4)};"
-                  f" (c) prefill vs decode_step {json.dumps(lm)}", flush=True)
+            r = {}
+            if "k4" in checks:
+                r["k4"] = kernel_reading(args)
+                pre, _ = model.prefill(params, tok, model.init_cache(1, 256))
+                r["lm_c"] = smoke.logit_errors(pre, want)
+                r["lm_c"]["ok"] = smoke.lm_bf16_ok(r["lm_c"])
+                print(f"fault {name}: K4 BH128 S2048 D128 bf16 "
+                      f"{json.dumps(r['k4'])}; (c) prefill vs decode_step "
+                      f"{json.dumps(r['lm_c'])}", flush=True)
+            if "k3" in checks:
+                r["k3"] = k3_reading(big)
+                print(f"fault {name}: K3 8192^3 {json.dumps(r['k3'])}",
+                      flush=True)
+            readings[name] = r
     use_source(*sound)
     print(f"tolerances: K4 allclose {smoke.tolerance('bfloat16')}, row "
           f"relative L2 {flash_attention.ROW_L2_TOL['bfloat16']}; (c) "
           f"{smoke.LM_BF16_TOL} (max abs, x max(1, max|ref|); and relative "
-          f"L2)")
+          f"L2); K3 allclose {smoke.tolerance('float32')} in float32, "
+          f"{smoke.tolerance('bfloat16')} in bfloat16")
     print(smoke.nvidia_smi())
     bad = [f"{name} {check}" for name, r in readings.items()
-           for check in ("k4", "lm_c")
-           if r[check]["ok"] != (name == "sound")]
+           for check in r if r[check]["ok"] != (name == "sound")]
     print(json.dumps({"ok": not bad, "unexpected": bad}))
     return 1 if bad else 0
 

@@ -11,11 +11,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (one nvcc per source and config, all started together) and hold each
    CUDA kernel against its plain PyTorch version on the card: the small test
    shapes in float32 and bfloat16 at three configs, the MicroHH grids 256^3
-   and 512^3, matmul at 512 x 1024 x 512 and 8192^3, flash attention at
-   GQA 4/4, 4/2 and 8/1, causal and full, S 256 and 512, D 128, and at the
-   LM slice's prefill shape BH 128 x S 2048 x D 128 in bfloat16;
-3. the quickstart loop: matmul 512 x 1024 x 512 float32, capture -> wall-clock
-   tune (bayes) -> relaunch in tier "exact", equal to the first launch;
+   and 512^3, matmul in five configs (both bodies, split_k 1/2/4, stages
+   2-4) at its test shapes, a ragged one, a bfloat16 one that TMA cannot
+   take, (m, n, k) = (512, 512, 1024) and 8192^3 in float32 and bfloat16
+   (naming the body each case ran), flash attention at GQA 4/4, 4/2 and
+   8/1, causal and full, S 256 and 512, D 128, and at the LM slice's
+   prefill shape BH 128 x S 2048 x D 128 in bfloat16;
+3. the quickstart loop: matmul (512, 512, 1024) float32, capture ->
+   wall-clock tune (bayes, 20 evaluations) -> relaunch in tier "exact",
+   equal to the first launch;
 4. the MicroHH loop: tune advec_u and diff_uvw at 256^3 in float32 and
    bfloat16, select each in tier "exact", then launch both at 512^3 through a
    fallback tier and check them against their plain versions;
@@ -28,8 +32,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    prefill selects tier "exact"; (e) ServeEngine in token mode answers 8
    requests;
 6. times from CUDA events beside each kernel's bound, its plain version's
-   time and, for matmul and flash attention, the library call's; flash
-   attention at the slice shape in every config of its space.
+   time and, for matmul and flash attention, the library call's; matmul in
+   bfloat16 too; matmul (512, 512, 1024) float32 and flash attention at
+   the slice shape in every config of their spaces.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -79,6 +84,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 SMALL_STENCIL = [(8, 8, 128), (16, 32, 128), (32, 16, 256), (32, 32, 128)]
 SMALL_MATMUL = [(128, 128, 256), (256, 512, 128), (64, 128, 1024)]
+#: (m, n, k) of the quickstart's launch, the main path's matmul.
+QS_MATMUL = (512, 512, 1024)
+BIG_MATMUL = (8192, 8192, 8192)
+#: Phase 2's matmul shapes beyond the test ones: ragged (no tile divides
+#: m, n or k; TMA still takes bf16), one whose bf16 rows TMA cannot take
+#: (n, k not multiples of 8: the simt body reads bf16), the quickstart's
+#: and 8192^3.
+MATMUL_SHAPES = [*SMALL_MATMUL, (190, 136, 200), (100, 77, 50), QS_MATMUL,
+                 BIG_MATMUL]
 STENCIL_CONFIGS = [
     {},
     {"block_size_x": 128, "block_size_y": 2, "block_size_z": 2,
@@ -86,11 +100,20 @@ STENCIL_CONFIGS = [
     {"block_size_x": 16, "block_size_y": 16, "block_size_z": 1,
      "tile_factor_z": 8, "unravel_permutation": "yzx", "min_blocks_per_sm": 4},
 ]
+#: Updates of the default (128 x 128, block_k 8, 2 stages, split_k 1):
+#: split_k 1, 2 and 4, stages 2-4, 64- and 128-wide tiles; in bfloat16 one
+#: (block_m 64) or two (128) warpgroups at every stage count.
 MATMUL_CONFIGS = [
     {},
-    {"block_m": 128, "block_n": 32, "block_k": 32, "grid_order": "nmk"},
-    {"block_m": 128, "block_n": 128, "block_k": 8},
+    {"block_m": 64, "block_n": 64, "block_k": 16, "stages": 3, "split_k": 4},
+    {"block_m": 128, "block_n": 64, "block_k": 32, "stages": 4, "split_k": 2,
+     "grid_order": "nmk"},
+    {"block_m": 64, "block_n": 128, "block_k": 8, "stages": 2, "split_k": 2},
+    {"block_m": 128, "block_n": 128, "block_k": 16, "stages": 3,
+     "split_k": 4, "grid_order": "nmk"},
 ]
+#: Extra matmul configs timed in phase 6 (bfloat16: a deeper ring).
+MATMUL_TIMED = {"stages4": {"stages": 4}}
 FA_CONFIGS = [
     {},
     {"block_q": 128, "block_k": 32, "threads": 128},
@@ -357,8 +380,7 @@ def phase_build() -> None:
     for upd in STENCIL_CONFIGS:
         d = stencil_defines(kernel_cfg("advec_u", upd))
         specs += [("advec_u.cu", d), ("diff_uvw.cu", d)]
-    specs += [("matmul.cu", matmul._defines(kernel_cfg("matmul", u)))
-              for u in MATMUL_CONFIGS]
+    specs += matmul_specs()
     # every causal config at D = 128 (the LM tuning phase picks among them)
     # and the full-mask test configs
     specs += [("flash_attention.cu",
@@ -367,10 +389,65 @@ def phase_build() -> None:
     specs += [("flash_attention.cu", flash_attention.defines(
         kernel_cfg("flash_attention_full", u), False, FA_HEAD_DIM))
         for u in FA_CONFIGS]
+    specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
     secs = _build.build_many(specs)
     print(f"built {len(specs)} libraries with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {secs:.1f}s (parallel)",
           flush=True)
+
+
+def matmul_specs() -> list:
+    """Every matmul library phases 2-6 launch: each config of the space
+    on the quickstart's float32 problem (its tuning and the sweep), and the
+    check and timed configs at every phase-2 shape in both dtypes."""
+    space = get_kernel("matmul").space
+    out = [matmul.defines(c, matmul.plan(c, *QS_MATMUL, "float32"))
+           for c in space.enumerate()]
+    for u in [*MATMUL_CONFIGS, *MATMUL_TIMED.values()]:
+        cfg = kernel_cfg("matmul", u)
+        out += [matmul.defines(cfg, matmul.plan(cfg, *shape, dtype))
+                for dtype in DTYPES for shape in MATMUL_SHAPES]
+    return [("matmul.cu", d) for d in out]
+
+
+def matmul_check(cfg: dict, args, want: torch.Tensor, dtype: str):
+    """One matmul launch against the plain version's output ``want``
+    under the tuner's tolerance: (VerifyOutcome, the body that ran)."""
+    got = matmul.launch(cfg, *args)
+    torch.cuda.synchronize()
+    return verify_outcome(got, want, dtype), matmul.launch_plan(cfg,
+                                                                *args).body
+
+
+def phase_matmul() -> float:
+    """Every config of MATMUL_CONFIGS against ref.matmul_ref at every
+    shape of MATMUL_SHAPES in both dtypes; one line a (shape, dtype) names
+    the body that ran, which must be the shape rule's. Returns the default
+    config's max error on the quickstart's float32 problem."""
+    headline = 0.0
+    for dtype in DTYPES:
+        for m, n, k in MATMUL_SHAPES:
+            label = f"m{m}n{n}k{k}"
+            args = matrices(m, n, k, dtype)
+            want = ref.matmul_ref(*args)
+            expect = ("wgmma" if dtype == "bfloat16" and n % 8 == 0
+                      and k % 8 == 0 else "simt")
+            errs = []
+            for u in MATMUL_CONFIGS:
+                out, body = matmul_check(kernel_cfg("matmul", u), args, want,
+                                         dtype)
+                check(out.ok, f"matmul {label} {dtype} {u}: {out.error}")
+                check(body == expect, f"matmul {label} {dtype} {u}: ran the "
+                      f"{body} body, the shape rule says {expect}")
+                errs.append(out.max_err)
+            if (m, n, k) == QS_MATMUL and dtype == "float32":
+                headline = errs[0]
+            print(f"check matmul           {label:17s} {dtype:8s} body="
+                  f"{expect:5s} {len(errs)} configs max_abs_err="
+                  f"{max(errs):.3e} {tolerance(dtype)} ok", flush=True)
+            del args, want
+    torch.cuda.empty_cache()
+    return headline
 
 
 def phase_kernels() -> dict:
@@ -378,20 +455,16 @@ def phase_kernels() -> dict:
     the headline shapes."""
     headline = {}
     for dtype in DTYPES:
-        for name in ("advec_u", "diff_uvw_fused", "diff_uvw_single",
-                     "matmul"):
+        for name in ("advec_u", "diff_uvw_fused", "diff_uvw_single"):
             errs = []
-            shapes = SMALL_MATMUL if name == "matmul" else SMALL_STENCIL
-            for shape in shapes:
-                args = (matrices(*shape, dtype) if name == "matmul"
-                        else stencil_args(name, shape, dtype))
-                for upd in (MATMUL_CONFIGS if name == "matmul"
-                            else STENCIL_CONFIGS):
+            for shape in SMALL_STENCIL:
+                args = stencil_args(name, shape, dtype)
+                for upd in STENCIL_CONFIGS:
                     errs.append(compare(name, kernel_cfg(name, upd), args,
                                         dtype, "x".join(map(str, shape)),
                                         verbose=False)["max_abs_err"])
-            print(f"check {name:16s} {len(errs)} cases ({len(shapes)} test "
-                  f"shapes x 3 configs) {dtype:8s} max_abs_err="
+            print(f"check {name:16s} {len(errs)} cases ({len(SMALL_STENCIL)}"
+                  f" test shapes x 3 configs) {dtype:8s} max_abs_err="
                   f"{max(errs):.3e} {tolerance(dtype)} ok", flush=True)
     for dtype in DTYPES:
         for g in (256, 512):
@@ -402,13 +475,7 @@ def phase_kernels() -> dict:
                 if g == 512 and dtype == "float32":
                     headline[name] = err
                 del args
-        args = matrices(512, 512, 1024, dtype)
-        err = compare("matmul", kernel_cfg("matmul", {}), args, dtype,
-                      "m512n512k1024")["max_abs_err"]
-        if dtype == "float32":
-            headline["matmul"] = err
-    compare("matmul", kernel_cfg("matmul", {}),
-            matrices(8192, 8192, 8192, "float32"), "float32", "m=n=k=8192")
+    headline["matmul"] = phase_matmul()
     for dtype in DTYPES:
         for name in ("flash_attention_causal", "flash_attention_full"):
             errs = []
@@ -435,7 +502,7 @@ def phase_kernels() -> dict:
 
 def phase_main_path() -> tuple[dict, dict, dict]:
     _build.reset_launch_counts()
-    qs = quickstart.main(["--device", "cuda", "--max-evals", "10",
+    qs = quickstart.main(["--device", "cuda", "--max-evals", "20",
                           "--budget-seconds", "120"])
     check(qs["tiers"] == ("default", "exact"),
           f"quickstart tiers {qs['tiers']}, want ('default', 'exact')")
@@ -722,14 +789,39 @@ def phase_times(qs: dict, mh: dict) -> dict:
             del args
     res = qs["result"]
     rows[("matmul", 512, "float32")] = timing_row(
-        "matmul", (512, 512, 1024), "float32",
+        "matmul", QS_MATMUL, "float32",
         {"default": kernel_cfg("matmul", {}), "tuned": res.best_config},
         [qs["a"], qs["b"]])
+    matmul_sweep([qs["a"], qs["b"]], res.best_config)
     rows[("matmul", 8192, "float32")] = timing_row(
-        "matmul", (8192, 8192, 8192), "float32",
-        {"default": kernel_cfg("matmul", {})},
-        matrices(8192, 8192, 8192, "float32"))
+        "matmul", BIG_MATMUL, "float32", {"default": kernel_cfg("matmul", {})},
+        matrices(*BIG_MATMUL, "float32"))
+    for shape in (QS_MATMUL, BIG_MATMUL):
+        rows[("matmul", shape[0], "bfloat16")] = timing_row(
+            "matmul", shape, "bfloat16",
+            {"default": kernel_cfg("matmul", {})} | {
+                label: kernel_cfg("matmul", u)
+                for label, u in MATMUL_TIMED.items()},
+            matrices(*shape, "bfloat16"))
+    torch.cuda.empty_cache()
     return rows
+
+
+def matmul_sweep(args, tuned: dict) -> None:
+    """Every float32 config of the space on the quickstart's operands,
+    median of 5, fastest first; and where the tuner's pick ranks."""
+    space = get_kernel("matmul").space
+    sweep = sorted(((c, time_ms(calls("matmul", c, args)[0], reps=5))
+                    for c in space.enumerate()), key=lambda x: x[1])
+    print("sweep matmul float32 " + json.dumps(
+        [[c["block_m"], c["block_n"], c["block_k"], c["stages"],
+          c["split_k"], c["grid_order"], round(ms, 4)] for c, ms in sweep])
+          + " ([block_m, block_n, block_k, stages, split_k, grid_order, ms])",
+          flush=True)
+    rank = next(i for i, (c, _) in enumerate(sweep) if c == tuned)
+    print(f"sweep matmul float32: {len(sweep)} configs, fastest "
+          f"{sweep[0][1]:.4f} ms, slowest {sweep[-1][1]:.4f} ms; the tuned "
+          f"config ranks {rank + 1} at {sweep[rank][1]:.4f} ms", flush=True)
 
 
 def phase_lm_times(lm: dict) -> dict:

@@ -122,18 +122,31 @@ def build(source: str, defines: Defines) -> tuple[Path, float]:
 
 
 def build_many(specs) -> float:
-    """Build several (source, defines) pairs with one nvcc each, all started
-    together. Returns the wall seconds; raises on the first failure."""
+    """Build several (source, defines) pairs with one nvcc each, twice as
+    many at a time as the host has CPUs, the next started when the oldest
+    running one ends. Returns the wall seconds; raises, after all have
+    run, if any failed."""
     t0 = time.perf_counter()
-    todo = dict.fromkeys((source, tuple(d)) for source, d in specs)
-    started = [(source, *_start(source, d)) for source, d in todo
-               if not library_path(source, d).exists()]
+    jobs = 2 * (os.cpu_count() or 4)
+    todo = [(source, d) for source, d in
+            dict.fromkeys((source, tuple(d)) for source, d in specs)
+            if not library_path(source, d).exists()]
+    running: list = []
     errors = []
-    for source, out, tmp, proc in started:
+
+    def finish_one() -> None:
+        source, out, tmp, proc = running.pop(0)
         try:
             _finish(source, out, tmp, proc)
         except KernelBuildError as e:
             errors.append(str(e))
+
+    for source, d in todo:
+        if len(running) >= jobs:
+            finish_one()
+        running.append((source, *_start(source, d)))
+    while running:
+        finish_one()
     if errors:
         raise KernelBuildError("\n".join(errors))
     return time.perf_counter() - t0
@@ -187,17 +200,31 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = (ctypes.c_int, *argtypes)
         self.launches = 0
+        # defines -> (the loaded Library, its entry point with argtypes set)
+        self._entry: dict[Defines, tuple[Library, ctypes._CFuncPtr]] = {}
         CUDA_KERNELS[name] = self
 
     def load(self, defines: Defines) -> Library:
         return load(self.source, defines)
 
-    def __call__(self, defines: Defines, dtype: str, *args) -> None:
-        lib = self.load(defines)
+    def entry(self, defines: Defines):
+        """The C entry point of (source, defines), built and loaded if
+        needed; looked up once per loaded library, so a launch costs the
+        host a dict lookup instead of a locked load and a symbol lookup."""
+        lib = _LOADED.get((self.source, defines))
+        hit = self._entry.get(defines)
+        if lib is not None and hit is not None and hit[0] is lib:
+            return hit[1]
+        self.load(defines)
+        lib = _LOADED[(self.source, tuple(defines))]
         fn = getattr(lib.cdll, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        err = fn(DTYPE_CODES[dtype], *args)
+        self._entry[defines] = (lib, fn)
+        return fn
+
+    def __call__(self, defines: Defines, dtype: str, *args) -> None:
+        err = self.entry(defines)(DTYPE_CODES[dtype], *args)
         if err != 0:
             raise KernelLaunchError(
                 f"{self.name}: launch returned cudaError_t {err} "

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import GPU_H100, WisdomKernel, args_meta, get_kernel
-from repro_torch.kernels import _build, flash_attention
+from repro_torch.kernels import _build, flash_attention, matmul, ref
 from repro_torch.tuner import WallClockEvaluator, verify_outcome
 
 pytestmark = pytest.mark.gpu
@@ -44,6 +44,75 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, dtype):
         torch.cuda.synchronize()
         out = verify_outcome(got, want, dtype)
         assert out.ok, f"{cfg}: {out.error}"
+
+
+#: (dtype, shape) -> the body the shape rule gives it: (128, 96, 72) is
+#: ragged for every tile but TMA takes its bf16 rows; (100, 77, 50) is a
+#: bf16 shape TMA cannot take (n, k not multiples of 8).
+MATMUL_BODY_CASES = {("float32", (128, 96, 72)): "simt",
+                     ("bfloat16", (128, 96, 72)): "wgmma",
+                     ("float32", (100, 77, 50)): "simt",
+                     ("bfloat16", (100, 77, 50)): "simt"}
+
+
+def _matmul_args(cuda_device, problem, dtype):
+    return [a.to(cuda_device)
+            for a in matmul.builder.make_probe_args(problem, dtype)]
+
+
+@pytest.mark.parametrize("dtype,problem", sorted(MATMUL_BODY_CASES))
+def test_matmul_body_split_stages_match_plain_version(cuda_device, dtype,
+                                                      problem):
+    """Each body x split_k x stages (64- and 128-wide tiles alternating)
+    against the plain version under the tuner's tolerance, and the body
+    the shape rule names is the one that ran."""
+    args = _matmul_args(cuda_device, problem, dtype)
+    want = ref.matmul_ref(*args)
+    base = matmul.builder.default_config()
+    pairs = [(sk, st) for sk in (1, 2, 4) for st in (2, 3, 4)]
+    configs = [base | {"split_k": sk, "stages": st, "block_m": w,
+                       "block_n": w}
+               for (sk, st), w in zip(pairs, [64, 128] * 5)]
+    _build.build_many(("matmul.cu", matmul.defines(
+        c, matmul.plan(c, *problem, dtype))) for c in configs)
+    before = _build.CUDA_KERNELS["matmul"].launches
+    for cfg in configs:
+        assert matmul.launch_plan(cfg, *args).body == \
+            MATMUL_BODY_CASES[(dtype, problem)]
+        got = matmul.launch(cfg, *args)
+        torch.cuda.synchronize()
+        out = verify_outcome(got, want, dtype)
+        assert out.ok, f"{cfg}: {out.error}"
+    assert _build.CUDA_KERNELS["matmul"].launches == before + len(configs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_split_k_launches_are_bit_identical(cuda_device, dtype):
+    """No atomics: two launches of one split_k 4 config agree bit for bit."""
+    args = _matmul_args(cuda_device, (384, 256, 1024), dtype)
+    cfg = matmul.builder.default_config() | {"split_k": 4, "stages": 3}
+    first = matmul.launch(cfg, *args)
+    second = matmul.launch(cfg, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_refused_launch_raises(cuda_device, dtype):
+    """A ring of 8 stages of 128 x 128 tiles (outside the space) needs more
+    shared memory than a block may have in either body: the plan says so,
+    the card refuses, the wrapper raises and counts nothing."""
+    args = _matmul_args(cuda_device, (256, 256, 256), dtype)
+    cfg = matmul.builder.default_config() | {"block_k": 32, "stages": 8}
+    assert not matmul.builder.space.is_valid(cfg)
+    assert matmul.launch_plan(cfg, *args).refusal
+    before = _build.CUDA_KERNELS["matmul"].launches
+    with pytest.raises(_build.KernelLaunchError):
+        matmul.launch(cfg, *args)
+    assert _build.CUDA_KERNELS["matmul"].launches == before
+    out = matmul.launch(matmul.builder.default_config(), *args)   # still fine
+    torch.cuda.synchronize()
+    assert verify_outcome(out, ref.matmul_ref(*args), dtype).ok
 
 
 def test_wisdom_kernel_launch_stats_on_card(cuda_device, tmp_path,

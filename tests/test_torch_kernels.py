@@ -168,7 +168,7 @@ def test_kernel_modules_import_without_toolchain():
 
 
 @pytest.mark.parametrize("source", ["advec_u.cu", "diff_uvw.cu", "matmul.cu"])
-def test_build_command_targets_sm_90a(source):
+def test_build_command_targets_sm_90a(source, tmp_path, monkeypatch):
     defines = (("BLOCK_M", 64),)
     out = _build.library_path(source, defines)
     cmd = _build.nvcc_command(source, defines, out)
@@ -180,6 +180,102 @@ def test_build_command_targets_sm_90a(source):
     # the output is keyed by source, defines and flags
     assert out != _build.library_path(source, (("BLOCK_M", 128),))
     assert (_build.CSRC / source).exists()
+    # ... and by the headers beside it, hopper.cuh included: a changed
+    # helper rebuilds every library
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path(source, defines).name == out.name
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// changed\n")
+    assert _build.library_path(source, defines).name != out.name
+
+
+# ------------------------------------------------ matmul: space and plan
+
+def test_matmul_space_refuses_tpu_configs():
+    """No TPU config of the reference's space (its default included, which
+    ``test_torch_core.py``'s TPU wisdom records hold) is a config of the
+    port's; the default with block_k 32 is."""
+    space = get_kernel("matmul").space
+    rb = repro_kernel("matmul")
+    tpu = list(rb.space.enumerate())
+    assert rb.default_config() in tpu and len(tpu) > 100
+    assert not any(space.is_valid(c) for c in tpu)
+    assert space.is_valid(space.default_config() | {"block_k": 32})
+    assert space.default_config() == {
+        "block_m": 128, "block_n": 128, "block_k": 8, "stages": 2,
+        "split_k": 1, "grid_order": "mnk"}
+
+
+# (dtype, (m, n, k), aligned) -> (body, VEC)
+PLAN_BODIES = {
+    ("float32", (512, 512, 1024), True): ("simt", True),
+    ("float32", (100, 77, 50), True): ("simt", False),
+    ("float32", (128, 96, 72), False): ("simt", False),
+    ("bfloat16", (512, 512, 1024), True): ("wgmma", True),
+    ("bfloat16", (190, 136, 200), True): ("wgmma", True),
+    ("bfloat16", (100, 77, 50), True): ("simt", False),
+    ("bfloat16", (64, 64, 68), True): ("simt", False),     # k % 8 != 0
+    ("bfloat16", (64, 68, 64), True): ("simt", False),     # n % 8 != 0
+    ("bfloat16", (128, 96, 72), False): ("simt", False),   # not 16-aligned
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_BODIES), ids=str)
+def test_matmul_plan_body_grid_workspace_smem(case):
+    dtype, (m, n, k), aligned = case
+    body, vec = PLAN_BODIES[case]
+    for cfg in get_kernel("matmul").space.enumerate():
+        p = matmul.plan(cfg, m, n, k, dtype, aligned)
+        assert (p.body, p.vec) == (body, vec)
+        bm, bn, sk = cfg["block_m"], cfg["block_n"], cfg["split_k"]
+        tiles = (-(-m // bm), -(-n // bn))
+        assert p.grid == ((*tiles, sk) if cfg["grid_order"] == "mnk"
+                          else (*tiles[::-1], sk))
+        assert p.workspace_bytes == (4 * sk * m * n if sk > 1 else 0)
+        assert p.tile_k == (64 if body == "wgmma" else cfg["block_k"])
+        if body == "wgmma":   # alignment slack, (A + B) bf16 tiles, barriers
+            want = 1024 + cfg["stages"] * (bm + bn) * 64 * 2 \
+                + 16 * cfg["stages"]
+        else:                 # A^T (rows padded by 4) and B in f32
+            want = cfg["stages"] * cfg["block_k"] * (bm + 4 + bn) * 4
+        assert p.smem_bytes == want <= 232_448 and p.refusal == ""
+        d = dict(matmul.defines(cfg, p))
+        assert (d["BF16"], d["VEC"], d["BLOCK_K"], d["SPLIT_K"]) == (
+            int(dtype == "bfloat16"), int(vec), p.tile_k, sk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_plan_refuses_what_the_card_cannot_launch(dtype):
+    cfg = matmul.builder.default_config() | {"block_k": 32}
+    assert matmul.plan(cfg, 256, 256, 256, dtype).refusal == ""
+    for upd in ({"stages": 8}, {"stages": 16, "block_m": 64}):
+        bad = cfg | upd
+        p = matmul.plan(bad, 256, 256, 256, dtype)
+        assert p.smem_bytes > 232_448 and "shared memory" in p.refusal
+        assert not matmul.fits_card(bad)
+    wide = cfg | {"block_n": 512}   # 256 accumulators a thread
+    assert "accumulators" in matmul.plan(wide, 256, 256, 256, dtype).refusal
+
+
+@pytest.mark.parametrize("tile_k", [8, 16, 32, 64])
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("k", sorted({k for _, _, k in MATMUL_SHAPES}
+                                     | {1, 7, 1023}))
+def test_matmul_split_ranges_cover_k_once(k, split, tile_k):
+    ranges = matmul.split_ranges(k, tile_k, split)
+    assert len(ranges) == split
+    covered = np.zeros(k, np.int64)
+    for begin, end in ranges:
+        assert 0 <= begin <= end <= k
+        if begin < end:   # an empty trailing slice sits at k
+            assert begin % tile_k == 0 and (end % tile_k == 0 or end == k)
+        covered[begin:end] += 1
+    assert (covered == 1).all()
+    # slices follow each other in z order, so the fixed-order reduction
+    # adds partials of increasing k
+    assert [b for b, _ in ranges] == sorted(b for b, _ in ranges)
 
 
 def _cpu_args(name):
