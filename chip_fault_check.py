@@ -10,6 +10,9 @@ Builds the kernels as they are and altered copies, in a temporary directory
 * ``no_mask`` (K4): the causal build attends to every key (the full mask);
 * ``late_tile`` (K4): the query tiles whose diagonal lies in the later half
   of the keys skip that last k/v tile, a fault confined to late rows;
+* ``kv_release_before_softmax`` (K4): the wgmma body's ring releases a
+  k/v stage, and thread 0 refills it, as soon as Q.K^T is done, so the
+  refill may land before P.V reads V;
 * ``drop_last_split`` (K3): the split-K reduction skips the last slice;
 * ``early_stage_reuse`` (K3): the bfloat16 body's ring releases a stage,
   and thread 0 refills it, before the wgmma that reads it has been waited
@@ -17,14 +20,17 @@ Builds the kernels as they are and altered copies, in a temporary directory
 
 The readings, as ``chip_smoke.py`` takes them:
 
-1. K4 (sound kernel and K4 faults): the K4 check at the LM prefill's shape
-   (BH 128 x S 2048 x D 128, bfloat16, causal, default config): the
-   tuner's allclose and the largest relative L2 error of a row against
-   ``flash_attention.ROW_L2_TOL``;
+1. K4 (sound kernel and K4 faults): phase 2's K4 checks at the LM
+   prefill's shape (BH 128 x S 2048 x D 128, bfloat16, causal) in every
+   config of ``chip_smoke.FA_SLICE_CONFIGS``: the default and the
+   two-warpgroup 128 x 128 (wgmma body) and an mma-body one; the tuner's
+   allclose and the largest relative L2 error of a row against
+   ``flash_attention.ROW_L2_TOL``; it passes only if every config does;
 2. check (c) (sound kernel and K4 faults): codeqwen1.5-7b in bfloat16 with
-   all 32 layers and the same seeded weights, the last logits of a
-   256-token prefill against the same tokens fed through ``decode_step``
-   (which runs no flash kernel), against ``chip_smoke.LM_BF16_TOL``;
+   all 32 layers and the same seeded weights (default config: the wgmma
+   body), the last logits of a 256-token prefill against the same tokens
+   fed through ``decode_step`` (which runs no flash kernel), against
+   ``chip_smoke.LM_BF16_TOL``;
 3. K3 (sound kernel and K3 faults): phase 2's matmul check at 8192^3 in
    float32 and bfloat16, every config of ``chip_smoke.MATMUL_CONFIGS``, the
    tuner's allclose; it passes only if every config does.
@@ -49,24 +55,33 @@ from repro_torch.kernels import _build, flash_attention, matmul, ref
 from repro_torch.models import build_model
 from repro_torch.tuner.runner import verify_outcome
 
-#: fault -> (source under csrc/, its text to alter, the replacement)
+#: fault -> (source under csrc/, its edits: (text to alter, replacement))
 FAULTS = {
-    "no_mask": ("flash_attention.cu", "namespace {\n",
-                "#undef CAUSAL\n#define CAUSAL 0\nnamespace {\n"),
-    "late_tile": ("flash_attention.cu", "  return diag < n ? diag : n;\n",
-                  "  return diag <= n / 2 ? diag"
-                  " : (diag < n ? diag : n) - 1;\n"),
-    "drop_last_split": ("matmul.cu",
-                        "for (int z = 1; z < SPLIT_K; ++z)",
-                        "for (int z = 1; z < SPLIT_K - 1; ++z)"),
-    "early_stage_reuse": ("matmul.cu",
-                          "    wgmma_wait<1>();\n"
-                          "    wgmma_fence_operands<ACC>(acc);\n"
-                          "    const int done = t - 1;\n",
-                          "    wgmma_fence_operands<ACC>(acc);\n"
-                          "    const int done = t;\n"),
+    "no_mask": ("flash_attention.cu", (
+        ("namespace {\n", "#undef CAUSAL\n#define CAUSAL 0\nnamespace {\n"),)),
+    "late_tile": ("flash_attention.cu", (
+        ("  return diag < n ? diag : n;\n",
+         "  return diag <= n / 2 ? diag : (diag < n ? diag : n) - 1;\n"),)),
+    "kv_release_before_softmax": ("flash_attention.cu", (
+        ("      wgmma_wait<0>();\n"
+         "      wgmma_fence_operands<SACC>(sc);\n",
+         "      wgmma_wait<0>();\n"
+         "      wgmma_fence_operands<SACC>(sc);\n"
+         "      release();\n"),
+        ("      wgmma_fence_operands<OACC>(acc);\n"
+         "      release();\n",
+         "      wgmma_fence_operands<OACC>(acc);\n"))),
+    "drop_last_split": ("matmul.cu", (
+        ("for (int z = 1; z < SPLIT_K; ++z)",
+         "for (int z = 1; z < SPLIT_K - 1; ++z)"),)),
+    "early_stage_reuse": ("matmul.cu", (
+        ("    wgmma_wait<1>();\n"
+         "    wgmma_fence_operands<ACC>(acc);\n"
+         "    const int done = t - 1;\n",
+         "    wgmma_fence_operands<ACC>(acc);\n"
+         "    const int done = t;\n"),)),
 }
-#: The readings each source's faults must fail.
+#: The readings taken for each source's faults.
 READINGS = {"flash_attention.cu": ("k4", "lm_c"), "matmul.cu": ("k3",)}
 
 
@@ -78,17 +93,28 @@ def use_source(csrc: Path, build: Path) -> None:
 
 def faulted_copy(sound: Path, tmp: Path, fault: str) -> Path:
     """A copy of ``sound`` (every .cu and .cuh) with ``fault`` planted."""
-    source, old, new = FAULTS[fault]
+    source, edits = FAULTS[fault]
     csrc = tmp / fault
     csrc.mkdir()
     for path in [*sound.glob("*.cu"), *sound.glob("*.cuh")]:
         shutil.copy(path, csrc)
     text = (sound / source).read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{fault}: the text to alter is not in {source} "
-                           f"once")
-    (csrc / source).write_text(text.replace(old, new))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{fault}: the text to alter is not in "
+                               f"{source} once")
+        text = text.replace(old, new)
+    (csrc / source).write_text(text)
     return csrc
+
+
+def build_k4() -> None:
+    """Build the K4 libraries of the K4 reading and (c) from the current
+    sources together, one nvcc each, before any is loaded."""
+    _build.build_many(
+        ("flash_attention.cu", smoke.flash_defines(
+            smoke.kernel_cfg("flash_attention_causal", u), True, "bfloat16"))
+        for u in smoke.FA_SLICE_CONFIGS)
 
 
 def k3_reading(big: dict) -> dict:
@@ -108,15 +134,22 @@ def k3_reading(big: dict) -> dict:
     return {"ok": all(c["ok"] for c in cases.values()), "cases": cases}
 
 
-def kernel_reading(args) -> dict:
-    cfg = flash_attention.causal_builder.default_config()
-    got = flash_attention.launch(cfg, *args, causal=True)
-    want = ref.flash_attention_ref_factory(True)(*args)
-    out = verify_outcome(got, want, "bfloat16")
-    row = flash_attention.row_l2_error(got, want)
-    return {"allclose_ok": out.ok, "max_abs_err": out.max_err,
-            "max_abs_ref": float(want.abs().max()), "row_l2_err": row,
+def kernel_reading(args, want: torch.Tensor) -> dict:
+    """Phase 2's K4 checks at the slice shape: every config of
+    ``FA_SLICE_CONFIGS`` against the plain version's output ``want``."""
+    cases = {}
+    for u in smoke.FA_SLICE_CONFIGS:
+        cfg = smoke.kernel_cfg("flash_attention_causal", u)
+        got = flash_attention.launch(cfg, *args, causal=True)
+        torch.cuda.synchronize()
+        out = verify_outcome(got, want, "bfloat16")
+        row = flash_attention.row_l2_error(got, want)
+        cases[f"{smoke.fa_body(cfg, 'bfloat16')} {json.dumps(cfg)}"] = {
+            "allclose_ok": out.ok, "max_abs_err": out.max_err,
+            "row_l2_err": row,
             "ok": out.ok and row <= flash_attention.ROW_L2_TOL["bfloat16"]}
+    return {"ok": all(c["ok"] for c in cases.values()),
+            "max_abs_ref": float(want.abs().max()), "cases": cases}
 
 
 def main() -> int:
@@ -127,6 +160,7 @@ def main() -> int:
     sound = (_build.CSRC, _build.BUILD_DIR)
     cfg = get_arch(smoke.LM_ARCH)
     args = smoke.qkv(128, 128, smoke.LM_SEQ, smoke.FA_HEAD_DIM, "bfloat16")
+    fa_want = ref.flash_attention_ref_factory(True)(*args)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     tok = smoke.lm_tokens(1, 256, cfg.vocab, seed=3)
@@ -148,7 +182,8 @@ def main() -> int:
             name = fault or "sound"
             r = {}
             if "k4" in checks:
-                r["k4"] = kernel_reading(args)
+                build_k4()
+                r["k4"] = kernel_reading(args, fa_want)
                 pre, _ = model.prefill(params, tok, model.init_cache(1, 256))
                 r["lm_c"] = smoke.logit_errors(pre, want)
                 r["lm_c"]["ok"] = smoke.lm_bf16_ok(r["lm_c"])

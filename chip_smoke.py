@@ -15,8 +15,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    2-4) at its test shapes, a ragged one, a bfloat16 one that TMA cannot
    take, (m, n, k) = (512, 512, 1024) and 8192^3 in float32 and bfloat16
    (naming the body each case ran), flash attention at GQA 4/4, 4/2 and
-   8/1, causal and full, S 256 and 512, D 128, and at the LM slice's
-   prefill shape BH 128 x S 2048 x D 128 in bfloat16;
+   8/1, causal and full, S 256, 512 and a ragged 200, D 128, in four
+   configs (bfloat16 runs two in the wgmma body and two in the mma body;
+   each line names them), and at the LM slice's prefill shape BH 128 x
+   S 2048 x D 128 in bfloat16 in three configs, both bodies;
 3. the quickstart loop: matmul (512, 512, 1024) float32, capture ->
    wall-clock tune (bayes, 20 evaluations) -> relaunch in tier "exact",
    equal to the first launch;
@@ -26,15 +28,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 5. the LM slice on codeqwen1.5-7b at full width: (a) in float32 with 2
    layers, prefill logits (flash kernel) against the same prompt fed token
    by token through decode_step; (b) in bfloat16 with all 32 layers, prefill
-   4 x 2048 tokens (32 flash launches each) and 32 greedy decode steps;
-   (c) bfloat16 prefill of 256 tokens against decode_step; (d) capture the
-   prefill's attention launch, tune it (8 evaluations), and the next
-   prefill selects tier "exact"; (e) ServeEngine in token mode answers 8
-   requests;
+   4 x 2048 tokens (32 flash launches each, all in the wgmma body) and 32
+   greedy decode steps; (c) bfloat16 prefill of 256 tokens against
+   decode_step; (d) capture the prefill's attention launch, tune it (8
+   evaluations), and the next prefill selects tier "exact"; (e)
+   ServeEngine in token mode answers 8 requests;
 6. times from CUDA events beside each kernel's bound, its plain version's
    time and, for matmul and flash attention, the library call's; matmul in
-   bfloat16 too; matmul (512, 512, 1024) float32 and flash attention at
-   the slice shape in every config of their spaces.
+   bfloat16 too; flash attention at the slice shape in the default
+   (wgmma), tuned and one mma config; matmul (512, 512, 1024) float32 and
+   flash attention at the slice shape in every config of their spaces
+   (naming each flash config's body).
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -114,13 +118,23 @@ MATMUL_CONFIGS = [
 ]
 #: Extra matmul configs timed in phase 6 (bfloat16: a deeper ring).
 MATMUL_TIMED = {"stages4": {"stages": 4}}
+#: Updates of the default (64, 64, 128): in bfloat16 at D = 128 the default
+#: and the two-warpgroup 128 x 128 run the wgmma body, the other two mma.
 FA_CONFIGS = [
     {},
     {"block_q": 128, "block_k": 32, "threads": 128},
     {"block_q": 32, "block_k": 128, "threads": 64},
+    {"block_q": 128, "block_k": 128, "threads": 256},
 ]
+#: The mma-body config checked and timed at the slice shape beside the
+#: wgmma default.
+FA_MMA = {"block_q": 128, "block_k": 64, "threads": 128}
+#: The configs checked at the slice shape: the default and the 128 x 128
+#: two-warpgroup config (wgmma), and FA_MMA.
+FA_SLICE_CONFIGS = [{}, FA_CONFIGS[3], FA_MMA]
 FA_GQA = [(4, 4), (4, 2), (8, 1)]
-FA_SEQ = (256, 512)
+#: 200: a ragged S that no block divides (the TMA edge and the key mask).
+FA_SEQ = (256, 512, 200)
 FA_HEAD_DIM = 128
 TPU_KERNELS = {   # CUDA kernel -> the Pallas call it replaces
     "advec_u": "src/repro/kernels/advec_u.py:91",
@@ -381,19 +395,36 @@ def phase_build() -> None:
         d = stencil_defines(kernel_cfg("advec_u", upd))
         specs += [("advec_u.cu", d), ("diff_uvw.cu", d)]
     specs += matmul_specs()
-    # every causal config at D = 128 (the LM tuning phase picks among them)
-    # and the full-mask test configs
-    specs += [("flash_attention.cu",
-               flash_attention.defines(c, True, FA_HEAD_DIM))
-              for c in get_kernel("flash_attention_causal").space.enumerate()]
-    specs += [("flash_attention.cu", flash_attention.defines(
-        kernel_cfg("flash_attention_full", u), False, FA_HEAD_DIM))
-        for u in FA_CONFIGS]
+    specs += flash_specs()
     specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
     secs = _build.build_many(specs)
     print(f"built {len(specs)} libraries with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {secs:.1f}s (parallel)",
           flush=True)
+
+
+def fa_body(cfg: dict, dtype: str) -> str:
+    """The body a launch of ``cfg`` at D = 128 in ``dtype`` runs."""
+    return flash_attention.choose_body(dtype, FA_HEAD_DIM, cfg)
+
+
+def flash_defines(cfg: dict, causal: bool, dtype: str) -> tuple:
+    """The defines of the build that runs ``cfg`` at D = 128 in ``dtype``."""
+    return flash_attention.defines(cfg, causal, FA_HEAD_DIM,
+                                   fa_body(cfg, dtype))
+
+
+def flash_specs() -> list:
+    """Every flash library phases 2-6 launch: each causal config of the
+    space in bfloat16 (the LM tuning phase and the sweep pick among them)
+    and the check configs, causal and full, in both dtypes."""
+    out = [flash_defines(c, True, "bfloat16")
+           for c in get_kernel("flash_attention_causal").space.enumerate()]
+    for causal in (True, False):
+        name = "flash_attention_causal" if causal else "flash_attention_full"
+        out += [flash_defines(kernel_cfg(name, u), causal, dtype)
+                for u in FA_CONFIGS for dtype in DTYPES]
+    return [("flash_attention.cu", d) for d in out]
 
 
 def matmul_specs() -> list:
@@ -476,26 +507,39 @@ def phase_kernels() -> dict:
                     headline[name] = err
                 del args
     headline["matmul"] = phase_matmul()
+    fa = _build.CUDA_KERNELS["flash_attention"]
     for dtype in DTYPES:
         for name in ("flash_attention_causal", "flash_attention_full"):
-            errs = []
-            for hq, hkv in FA_GQA:
-                for s in FA_SEQ:
-                    args = qkv(hq, hkv, s, FA_HEAD_DIM, dtype)
-                    for upd in FA_CONFIGS:
-                        errs.append(compare(name, kernel_cfg(name, upd), args,
-                                            dtype, f"gqa{hq}/{hkv} s{s}",
+            for upd in FA_CONFIGS:
+                cfg = kernel_cfg(name, upd)
+                body = fa_body(cfg, dtype)
+                n0 = fa.body_launches.get(body, 0)
+                errs = []
+                for hq, hkv in FA_GQA:
+                    for s in FA_SEQ:
+                        args = qkv(hq, hkv, s, FA_HEAD_DIM, dtype)
+                        errs.append(compare(name, cfg, args, dtype,
+                                            f"gqa{hq}/{hkv} s{s}",
                                             verbose=False))
-            print(f"check {name:16s} {len(errs)} cases (GQA 4/4, 4/2, 8/1 x "
-                  f"S 256, 512 x D 128 x 3 configs) {dtype:8s} max_abs_err="
-                  f"{max(e['max_abs_err'] for e in errs):.3e} "
-                  f"{tolerance(dtype)} row_l2_err="
-                  f"{max(e['row_l2_err'] for e in errs):.3e} (tol "
-                  f"{flash_attention.ROW_L2_TOL[dtype]:g}) ok", flush=True)
-    headline["flash_attention"] = compare(
-        "flash_attention_causal", kernel_cfg("flash_attention_causal", {}),
-        qkv(128, 128, LM_SEQ, FA_HEAD_DIM, "bfloat16"), "bfloat16",
-        "BH128 S2048 D128")["max_abs_err"]
+                check(fa.body_launches.get(body, 0) - n0 == len(errs),
+                      f"{name} {dtype} {cfg}: not every case ran the "
+                      f"{body} body")
+                print(f"check {name:22s} {dtype:8s} body={body:5s} "
+                      f"{len(errs)} cases (GQA 4/4, 4/2, 8/1 x S 256, 512, "
+                      f"200 x D 128) max_abs_err="
+                      f"{max(e['max_abs_err'] for e in errs):.3e} "
+                      f"{tolerance(dtype)} row_l2_err="
+                      f"{max(e['row_l2_err'] for e in errs):.3e} (tol "
+                      f"{flash_attention.ROW_L2_TOL[dtype]:g}) ok config="
+                      f"{json.dumps(cfg)}", flush=True)
+    args = qkv(128, 128, LM_SEQ, FA_HEAD_DIM, "bfloat16")
+    for upd in FA_SLICE_CONFIGS:
+        cfg = kernel_cfg("flash_attention_causal", upd)
+        err = compare("flash_attention_causal", cfg, args, "bfloat16",
+                      f"BH128 S2048 D128 {fa_body(cfg, 'bfloat16')}")
+        if not upd:
+            headline["flash_attention"] = err["max_abs_err"]
+    del args
     torch.cuda.empty_cache()
     return headline
 
@@ -567,10 +611,12 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def device_profile(fn, label: str, steps: int = 1, top: int = 6) -> dict:
+def device_profile(fn, label: str, steps: int = 1, top: int = 6,
+                   own: str = "") -> dict:
     """Run ``fn`` under torch.profiler: the device's kernel time per step,
-    the window's host time per step (profiler overhead included) and the
-    kernels that took the most device time."""
+    the window's host time per step (profiler overhead included), the
+    kernels that took the most device time and, where ``own`` names a
+    kernel function, that kernel's own device time per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -586,6 +632,10 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6) -> dict:
            "profiled_wall_ms_per_step": wall * 1e3 / steps,
            "top": [(e.key[:70], round(e.self_device_time_total / 1e3
                                       / steps, 4)) for e in kernels[:top]]}
+    if own:
+        res["own_ms_per_step"] = sum(
+            e.self_device_time_total for e in kernels if own in e.key) \
+            / 1e3 / steps
     if not kernels:
         print(f"profile {label}: the profiler saw no device kernels; "
               f"device time not measured", flush=True)
@@ -594,6 +644,10 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6) -> dict:
               f" ms/step, profiled host window "
               f"{res['profiled_wall_ms_per_step']:.2f} ms/step; top kernels "
               f"(ms/step): {json.dumps(res['top'])}", flush=True)
+        if own:
+            print(f"profile {label}: {own} {res['own_ms_per_step']:.3f} "
+                  f"ms/step ({res['own_ms_per_step'] / busy * steps:.1%} "
+                  f"of the device kernels' time)", flush=True)
     return res
 
 
@@ -640,11 +694,15 @@ def phase_lm() -> dict:
     prefill_s = []
     for _ in range(3):          # the first is a warm-up
         cache = model.init_cache(LM_BATCH, LM_SEQ + LM_DECODE)
-        n0 = fa.launches
+        n0, w0 = fa.launches, fa.body_launches.get("wgmma", 0)
         (logits, cache), sec = timed(lambda: model.prefill(params, tok,
                                                            cache))
         check(fa.launches - n0 == cfg.n_layers,
               f"prefill launched flash {fa.launches - n0} times, want "
+              f"{cfg.n_layers}")
+        check(fa.body_launches.get("wgmma", 0) - w0 == cfg.n_layers,
+              f"prefill ran the wgmma body "
+              f"{fa.body_launches.get('wgmma', 0) - w0} times, want "
               f"{cfg.n_layers}")
         prefill_s.append(sec)
     check(logits.shape == (LM_BATCH, 1, cfg.padded_vocab)
@@ -671,7 +729,8 @@ def phase_lm() -> dict:
           f"{LM_BATCH} x {LM_SEQ} tokens in {out['prefill_ms']:.1f} ms "
           f"({out['prefill_tok_s']:.0f} tokens/s; runs "
           f"{[round(x * 1e3, 1) for x in prefill_s]} ms, the first a "
-          f"warm-up), flash +{cfg.n_layers} launches per prefill; "
+          f"warm-up), flash +{cfg.n_layers} launches per prefill, all "
+          f"in the wgmma body; "
           f"{LM_DECODE} greedy decode steps at batch {LM_BATCH} in "
           f"{out['decode_ms_per_step']:.2f} ms/step; peak device memory "
           f"{out['peak_gb']:.1f} GB", flush=True)
@@ -690,7 +749,8 @@ def phase_lm() -> dict:
             state["logits"], state["cache"] = model.decode_step(
                 params, state["cache"], nxt)
 
-    out["profile_prefill"] = device_profile(prefill_once, "prefill 4 x 2048")
+    out["profile_prefill"] = device_profile(prefill_once, "prefill 4 x 2048",
+                                            own="fa_wgmma_kernel")
     out["profile_decode"] = device_profile(decode_4, "decode batch 4",
                                            steps=4)
     busy = out["profile_decode"]["device_ms_per_step"]
@@ -738,8 +798,9 @@ def phase_lm() -> dict:
     out["tuned_prefill_ms"] = sec * 1e3
     print(f"lm (d) captured {caps[0].name}, tuned by wall clock: best "
           f"{res.best_score_us:.1f} us after {len(res.evaluations)} evals -> "
-          f"{res.best_config}; next prefill selected {tiers} in "
-          f"{sec * 1e3:.1f} ms", flush=True)
+          f"{res.best_config} (body {fa_body(res.best_config, 'bfloat16')});"
+          f" next prefill selected {tiers} in {sec * 1e3:.1f} ms",
+          flush=True)
 
     # (e) serve: token mode, 8 requests on 4 slots
     eng = ServeEngine(model, params, n_slots=4, max_seq=256, mode="token")
@@ -833,15 +894,21 @@ def phase_lm_times(lm: dict) -> dict:
     row = timing_row(
         "flash_attention_causal", shape, "bfloat16",
         {"default": kernel_cfg("flash_attention_causal", {}),
-         "tuned": lm["tuned"]}, args)
+         "tuned": lm["tuned"],
+         "mma": kernel_cfg("flash_attention_causal", FA_MMA)}, args)
+    print(f"time flash_attention_causal bodies: default "
+          f"{fa_body(kernel_cfg('flash_attention_causal', {}), 'bfloat16')},"
+          f" tuned {fa_body(lm['tuned'], 'bfloat16')}, mma "
+          f"{fa_body(kernel_cfg('flash_attention_causal', FA_MMA), 'bfloat16')}",
+          flush=True)
     sweep = [(cfg, time_ms(calls("flash_attention_causal", cfg, args)[0],
                            reps=5))
              for cfg in get_kernel("flash_attention_causal").space.enumerate()]
     sweep.sort(key=lambda x: x[1])
     print("sweep flash_attention_causal " + json.dumps(
-        [[c["block_q"], c["block_k"], c["threads"], round(ms, 4)]
-         for c, ms in sweep]) + " ([block_q, block_k, threads, ms])",
-          flush=True)
+        [[c["block_q"], c["block_k"], c["threads"], fa_body(c, "bfloat16"),
+          round(ms, 4)] for c, ms in sweep])
+          + " ([block_q, block_k, threads, body, ms])", flush=True)
     return row
 
 
@@ -861,7 +928,8 @@ def main() -> int:
     _build.reset_launch_counts()
     lm = phase_lm()
     lm_counts = {k: _build.CUDA_KERNELS[k].launches for k in LM_KERNELS}
-    print(f"lm-path launches: {json.dumps(lm_counts)}", flush=True)
+    print(f"lm-path launches: {json.dumps(lm_counts)}; flash_attention by "
+          f"body: {json.dumps(flash_attention.BODY_LAUNCHES)}", flush=True)
     for name, n in lm_counts.items():
         check(n > 0, f"{name} was not launched on the LM path")
     counts |= lm_counts

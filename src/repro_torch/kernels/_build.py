@@ -190,7 +190,9 @@ class CudaKernel:
 
     ``argtypes`` are the ctypes types after the leading dtype code; use
     ``ctypes.c_void_p`` for every pointer and for the stream. ``launches``
-    counts the launches that returned ``cudaSuccess``.
+    counts the launches that returned ``cudaSuccess``; ``body_launches``
+    counts them by the ``body`` a caller names, where a source has more
+    than one.
     """
 
     def __init__(self, name: str, source: str, symbol: str,
@@ -200,6 +202,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = (ctypes.c_int, *argtypes)
         self.launches = 0
+        self.body_launches: dict[str, int] = {}
         # defines -> (the loaded Library, its entry point with argtypes set)
         self._entry: dict[Defines, tuple[Library, ctypes._CFuncPtr]] = {}
         CUDA_KERNELS[name] = self
@@ -223,16 +226,20 @@ class CudaKernel:
         self._entry[defines] = (lib, fn)
         return fn
 
-    def __call__(self, defines: Defines, dtype: str, *args) -> None:
+    def __call__(self, defines: Defines, dtype: str, *args,
+                 body: str | None = None) -> None:
         err = self.entry(defines)(DTYPE_CODES[dtype], *args)
         if err != 0:
             raise KernelLaunchError(
                 f"{self.name}: launch returned cudaError_t {err} "
                 f"(defines {dict(defines)})")
         self.launches += 1
+        if body is not None:
+            self.body_launches[body] = self.body_launches.get(body, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's ``launches`` to 0."""
+    """Set every kernel's ``launches`` and ``body_launches`` to 0."""
     for k in CUDA_KERNELS.values():
         k.launches = 0
+        k.body_launches.clear()

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and the wgmma instructions, and the host
-// side of a TMA tensor map. Used by matmul.cu's bfloat16 body.
+// side of a TMA tensor map. Used by matmul.cu's bfloat16 body and
+// flash_attention.cu's wgmma body.
 //
 // Shared-memory layout the helpers assume (what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes): a tile whose inner box is 64 bf16
 // (128 bytes) wide, rows of 128 bytes, the 16-byte chunks of row r XORed
 // with r % 8, every tile 1024-byte aligned. Eight such rows (1024 bytes)
 // are one swizzle atom.
-//  * K-major operand (A, (m, k) row-major): rows are m, the 128 bytes are
+//  * K-major operand (A, (m, k) row-major; or B stored (n, k) row-major,
+//    the transpose-B immediate 0): rows are m (or n), the 128 bytes are
 //    64 k values. Atoms follow each other along m: SBO = 1024 bytes, LBO
 //    unused. The k16 slice kk starts 32 * kk bytes into the row.
 //  * MN-major operand (B, (k, n) row-major): one 64-column panel of n
@@ -77,6 +79,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 3-D map: (c0 inner, c1, c2 outer).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled operand.
@@ -109,10 +123,13 @@ __device__ __forceinline__ void wgmma_fence_operands(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// D (64 x 64, f32, in registers) += A (64 x 16) . B (16 x 64), both bf16 in
-// shared memory; A K-major, B MN-major (the transpose-B immediate, 1).
+// D (64 x N, f32, in registers) += A (64 x 16) . B (16 x N), both bf16 in
+// shared memory, A K-major; B MN-major for TRANS_B = 1, K-major for 0.
+// scale_d = 0 ignores D's old value (D = A . B).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a,
-                                              uint64_t desc_b) {
+                                                uint64_t desc_b,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -120,7 +137,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -129,13 +146,13 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D (64 x 128, f32, in registers) += A (64 x 16) . B (16 x 128), both bf16 in
-// shared memory; A K-major, B MN-major (the transpose-B immediate, 1).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
-                                              uint64_t desc_b) {
+                                                 uint64_t desc_b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -147,7 +164,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -164,19 +181,61 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D (64 x N) += A . B for N = 64 or 128.
-template <int N>
+// D (64 x N) += A . B for N = 64 or 128, both operands in shared memory.
+template <int N, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t desc_a,
-                                             uint64_t desc_b) {
+                                             uint64_t desc_b,
+                                             int scale_d = 1) {
   static_assert(N == 64 || N == 128, "wgmma width 64 or 128");
   if constexpr (N == 64) {
-    wgmma_m64n64k16(d, desc_a, desc_b);
+    wgmma_m64n64k16<TRANS_B>(d, desc_a, desc_b, scale_d);
   } else {
-    wgmma_m64n128k16(d, desc_a, desc_b);
+    wgmma_m64n128k16<TRANS_B>(d, desc_a, desc_b, scale_d);
   }
+}
+
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128) with A in registers (the
+// RS form): a[0..3] hold the bf16 pairs of the m16n8k16 A fragment of this
+// warp's 16 rows (a[0] row g, k 2t; a[1] row g + 8; a[2] row g, k 8 + 2t;
+// a[3] row g + 8, k 8 + 2t, for g = lane / 4, t = lane % 4). B is bf16 in
+// shared memory, MN-major for TRANS_B = 1.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d,
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
 }
 
 // ---------------------------------------------------------------- host
@@ -217,6 +276,29 @@ static inline int make_tma_map_bf16(CUtensorMap* map, const void* base,
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor map of a row-major (d2, d1, d0) bf16 tensor, boxes of
+// (1, box1, 64) with the 128-byte swizzle; out-of-range parts of a box load
+// as zeros, so rows past d1 never come from the next d2 slice. Needs
+// d0 % 8 == 0 and a 16-byte aligned base. Returns a cudaError_t.
+static inline int make_tma_map_bf16_3d(CUtensorMap* map, const void* base,
+                                       int d0, int d1, int d2, int box1) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d0) * d1 * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

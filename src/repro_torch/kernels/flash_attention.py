@@ -16,12 +16,30 @@ The tuning space is Hopper's, not the TPU's (``dim_semantics`` means
 nothing here): query rows a block owns, key rows a shared-memory tile
 holds, and threads a block. Each warp owns 16 or 32 query rows. The space
 refuses configs that need more shared memory than a block may have
-(227 KB, ``core/device.py``'s ``gpu-h100`` spec) in float32 at D = 128, and
-two m16 tiles per warp with 128-key tiles, whose accumulators would not
-fit in registers. The head dimension is compiled in (``-DHEAD_DIM``), so a
-config is built once per D it meets; D is 128 or 256 (:data:`HEAD_DIMS`). On CPU tensors the plain version
-(``ref.flash_attention_ref_factory``) runs; on CUDA tensors the kernel, or
-an error.
+(227 KB, ``core/device.py``'s ``gpu-h100`` spec) at D = 128 in the body
+each dtype selects (:func:`card_refusal`), and two m16 tiles per warp with
+128-key tiles, whose accumulators would not fit in registers. The head
+dimension is compiled in (``-DHEAD_DIM``), so a config is built once per D
+it meets; D is 128 or 256 (:data:`HEAD_DIMS`). On CPU tensors the plain
+version (``ref.flash_attention_ref_factory``) runs; on CUDA tensors the
+kernel, or an error.
+
+One source, two bodies, chosen by :func:`choose_body` from the launch's
+dtype, D and config — never by trying one and falling back; a build
+compiles one of them (``-DWGMMA``). Both read 16-byte chunks (TMA, or
+``uint4`` loads), so :func:`launch` refuses operands that do not start on
+16-byte boundaries rather than choose a body for them:
+
+* ``"wgmma"``: bfloat16 at D = 128 with whole warpgroups of 16 rows a warp
+  (``block_q`` 64 or 128, ``threads == 2 * block_q``) and ``block_k`` 64 or
+  128: TMA loads through a two-stage mbarrier ring, both products on
+  ``wgmma``.
+* ``"mma"``: every other launch — float32 on the CUDA cores, bfloat16 on
+  ``mma.sync``.
+
+So four configs of the space run ``wgmma`` in bfloat16 at D = 128, the
+default among them, and the tuner picks between bodies through the configs
+it already has. :data:`BODY_LAUNCHES` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -51,15 +69,58 @@ HEAD_DIMS = (128, 256)
 SPACE_HEAD_DIM = 128
 #: Grid extent CUDA allows on the y axis, where the flattened heads go.
 _MAX_GRID_Y = 65535
+#: Depth of the wgmma body's k/v ring.
+WGMMA_STAGES = 2
+#: Launches of each body, counted where the kernel launches, as
+#: ``kernel.launches`` counts them all; zeroed with it by
+#: ``_build.reset_launch_counts``.
+BODY_LAUNCHES = kernel.body_launches
 
 
-def smem_bytes(config, head_dim: int, dtype: str) -> int:
-    """Dynamic shared memory of one block: the Q tile and one K and one V
-    tile, rows padded as ``csrc/flash_attention.cu`` pads them."""
-    rows = config["block_q"] + 2 * config["block_k"]
+def choose_body(dtype: str, head_dim: int, config) -> str:
+    """The body a launch runs: the rule, stated once. ``"wgmma"`` for
+    bfloat16 at D = 128 with whole warpgroups of 16 rows a warp
+    (``block_q`` 64 or 128, ``threads == 2 * block_q``) and a key tile
+    ``wgmma`` takes (``block_k`` 64 or 128); ``"mma"`` otherwise."""
+    if (dtype == "bfloat16" and head_dim == 128
+            and config["block_q"] in (64, 128)
+            and config["threads"] == 2 * config["block_q"]
+            and config["block_k"] in (64, 128)):
+        return "wgmma"
+    return "mma"
+
+
+def smem_bytes(config, body: str, head_dim: int, dtype: str) -> int:
+    """Dynamic shared memory of one block, as ``csrc/flash_attention.cu``
+    lays it out. mma: the Q tile and one K and one V tile, rows padded.
+    wgmma: 1024 bytes of alignment slack, the Q tile, two stages of K and
+    V tiles (unpadded, 128-byte swizzled), and five mbarriers."""
+    bq, bk = config["block_q"], config["block_k"]
+    if body == "wgmma":
+        return (1024 + (bq + 2 * WGMMA_STAGES * bk) * head_dim * 2
+                + (2 * WGMMA_STAGES + 1) * 8)
+    rows = bq + 2 * bk
     if dtype == "bfloat16":
         return rows * (head_dim + 8) * 2
     return rows * (head_dim + 1) * 4
+
+
+def card_refusal(config, body: str, head_dim: int, dtype: str) -> str:
+    """Why the H100 would refuse ``config`` in ``body``, or ``""``."""
+    smem = smem_bytes(config, body, head_dim, dtype)
+    if smem > GPU_H100.smem_per_block:
+        return (f"{body} body needs {smem} bytes of shared memory at D = "
+                f"{head_dim} in {dtype}, above the "
+                f"{GPU_H100.smem_per_block} a block may have")
+    return ""
+
+
+def fits_card(config) -> bool:
+    """The space's restriction: the card takes ``config`` at
+    :data:`SPACE_HEAD_DIM` in either dtype, in the body each selects."""
+    return not any(
+        card_refusal(config, choose_body(dt, SPACE_HEAD_DIM, config),
+                     SPACE_HEAD_DIM, dt) for dt in ("float32", "bfloat16"))
 
 
 def row_l2_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -82,10 +143,12 @@ def row_l2_error(got: torch.Tensor, want: torch.Tensor) -> float:
 ROW_L2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
-def defines(config, causal: bool, head_dim: int) -> tuple[tuple[str, int], ...]:
+def defines(config, causal: bool, head_dim: int,
+            body: str) -> tuple[tuple[str, int], ...]:
+    """The -D defines of the build that runs ``body``."""
     return (("BLOCK_Q", config["block_q"]), ("BLOCK_K", config["block_k"]),
             ("THREADS", config["threads"]), ("CAUSAL", int(causal)),
-            ("HEAD_DIM", head_dim))
+            ("HEAD_DIM", head_dim), ("WGMMA", int(body == "wgmma")))
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -132,10 +195,12 @@ def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
         raise ValueError(f"flash attention problem {(bh, k.shape[0], s, d)} "
                          f"outside the kernel's range, or an operand not "
                          f"16-byte aligned")
+    dtype = dtype_name(q.dtype)
+    body = choose_body(dtype, d, config)
     o = torch.empty_like(q)
-    kernel(defines(config, causal, d), dtype_name(q.dtype), q.data_ptr(),
+    kernel(defines(config, causal, d, body), dtype, q.data_ptr(),
            k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, k.shape[0], s, d,
-           torch.cuda.current_stream(q.device).cuda_stream)
+           torch.cuda.current_stream(q.device).cuda_stream, body=body)
     return o
 
 
@@ -150,8 +215,7 @@ def _make_builder(causal: bool) -> KernelBuilder:
     # two m16 tiles per warp hold scores and output in registers only up
     # to 64-key tiles
     b.restriction("block_q * 32 == 16 * threads or block_k <= 64")
-    b.restriction(f"(block_q + 2 * block_k) * {(SPACE_HEAD_DIM + 1) * 4}"
-                  f" <= {GPU_H100.smem_per_block}")
+    b.restriction(fits_card)
 
     @b.problem_size
     def _problem(q, k, v):
@@ -164,7 +228,9 @@ def _make_builder(causal: bool) -> KernelBuilder:
         if d not in HEAD_DIMS:
             raise ValueError(f"{name}: head dim {d} is not one of "
                              f"{HEAD_DIMS}")
-        lib = (kernel.load(defines(config, causal, d))   # nvcc: the JIT step
+        # nvcc: the JIT step, for the body this scenario's dtype selects
+        body = choose_body(meta[0].dtype, d, config)
+        lib = (kernel.load(defines(config, causal, d, body))
                if meta[0].device.type == "cuda" else None)
 
         def run(q, k, v):

@@ -322,33 +322,125 @@ def test_row_l2_bound_passes_rounding_and_rejects_a_late_row_fault(rng):
 
 def test_build_command_targets_sm_90a():
     b = flash_attention.causal_builder
-    d = flash_attention.defines(b.default_config(), True, 128)
+    d = flash_attention.defines(b.default_config(), True, 128, "wgmma")
     assert dict(d) == {"BLOCK_Q": 64, "BLOCK_K": 64, "THREADS": 128,
-                       "CAUSAL": 1, "HEAD_DIM": 128}
+                       "CAUSAL": 1, "HEAD_DIM": 128, "WGMMA": 1}
     out = _build.library_path("flash_attention.cu", d)
     cmd = _build.nvcc_command("flash_attention.cu", d, out)
     assert "arch=compute_90a,code=sm_90a" in cmd
-    for flag in ("-DBLOCK_Q=64", "-DCAUSAL=1", "-DHEAD_DIM=128", "-O3"):
+    for flag in ("-DBLOCK_Q=64", "-DCAUSAL=1", "-DHEAD_DIM=128",
+                 "-DWGMMA=1", "-O3"):
         assert flag in cmd
-    full = flash_attention.defines(b.default_config(), False, 128)
-    assert _build.library_path("flash_attention.cu", full) != out
+    full = flash_attention.defines(b.default_config(), False, 128, "wgmma")
+    mma = flash_attention.defines(b.default_config(), True, 128, "mma")
+    assert dict(mma)["WGMMA"] == 0
+    assert len({_build.library_path("flash_attention.cu", x)
+                for x in (d, full, mma)}) == 3
     assert (_build.CSRC / "flash_attention.cu").exists()
 
 
 def test_space_fits_the_h100():
-    """Every config the space admits fits a block's shared memory in
-    float32 at D=128, and gives each warp 16 or 32 query rows; both
-    builders share the space, and one CUDA kernel counts their launches."""
+    """Every config the space admits fits a block's shared memory at
+    D=128 in the body each dtype selects, and gives each warp 16 or 32
+    query rows; four configs run the wgmma body in bfloat16 (the default
+    among them) and none in float32; both builders share the space, and
+    one CUDA kernel counts their launches."""
     from repro_torch.core.device import GPU_H100
     for b in (flash_attention.causal_builder, flash_attention.full_builder):
         configs = list(b.space.enumerate())
         assert len(configs) == 15
         assert b.space.is_valid(b.default_config())
+        for dtype, n_wgmma in (("float32", 0), ("bfloat16", 4)):
+            bodies = [flash_attention.choose_body(dtype, 128, cfg)
+                      for cfg in configs]
+            assert bodies.count("wgmma") == n_wgmma
+            assert bodies.count("mma") == 15 - n_wgmma
+            for cfg, body in zip(configs, bodies):
+                assert flash_attention.smem_bytes(cfg, body, 128, dtype) <= \
+                    GPU_H100.smem_per_block
+        assert flash_attention.choose_body(
+            "bfloat16", 128, b.default_config()) == "wgmma"
         for cfg in configs:
-            assert flash_attention.smem_bytes(cfg, 128, "float32") <= \
-                GPU_H100.smem_per_block
             assert cfg["block_q"] * 32 // cfg["threads"] in (16, 32)
     assert _build.CUDA_KERNELS["flash_attention"] is flash_attention.kernel
+
+
+_WGMMA_CONFIGS = {(64, 64, 128), (64, 128, 128), (128, 64, 256),
+                  (128, 128, 256)}
+
+
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_choose_body_over_the_space(dtype, head_dim):
+    """wgmma exactly for bfloat16 at D=128 with one of the four
+    whole-warpgroup configs; mma for every other launch. Written out as
+    the rule's table, not as the rule."""
+    for cfg in flash_attention.causal_builder.space.enumerate():
+        key = (cfg["block_q"], cfg["block_k"], cfg["threads"])
+        want = ("wgmma" if dtype == "bfloat16" and head_dim == 128
+                and key in _WGMMA_CONFIGS else "mma")
+        assert flash_attention.choose_body(dtype, head_dim, cfg) == want, key
+
+
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smem_of_the_selected_body_fits_a_block(dtype, head_dim):
+    """Every config in the body it selects, and the wgmma body's byte
+    count (alignment slack, Q, two stages of K and V, five mbarriers):
+    under 227 KB wherever the body runs, except mma in float32 at D=256,
+    where the card's refusal is what the wrapper reports."""
+    from repro_torch.core.device import GPU_H100
+    for cfg in flash_attention.causal_builder.space.enumerate():
+        body = flash_attention.choose_body(dtype, head_dim, cfg)
+        smem = flash_attention.smem_bytes(cfg, body, head_dim, dtype)
+        refusal = flash_attention.card_refusal(cfg, body, head_dim, dtype)
+        assert bool(refusal) == (smem > GPU_H100.smem_per_block)
+        if body == "wgmma":
+            bq, bk = cfg["block_q"], cfg["block_k"]
+            assert smem == 1024 + (bq + 4 * bk) * 256 + 40 <= 232448
+        elif dtype == "bfloat16" or head_dim == 128:
+            assert not refusal, (cfg, refusal)
+    worst = {"block_q": 128, "block_k": 128, "threads": 256}
+    assert flash_attention.smem_bytes(worst, "wgmma", 128, "bfloat16") == \
+        1024 + 32768 + 2 * 65536 + 40
+
+
+@pytest.mark.parametrize("key", sorted(_WGMMA_CONFIGS))
+def test_wgmma_configs_build_the_wgmma_body_at_the_slice(key):
+    """Each whole-warpgroup config (the default among them) at the LM
+    slice's D=128 in bfloat16 selects wgmma, whose build carries WGMMA=1
+    and whose block holds the slack, Q, a two-stage K/V ring and five
+    mbarriers; in float32 or at D=256 it selects mma and builds WGMMA=0."""
+    bq, bk, threads = key
+    cfg = {"block_q": bq, "block_k": bk, "threads": threads}
+    assert flash_attention.causal_builder.space.is_valid(cfg)
+    body = flash_attention.choose_body("bfloat16", 128, cfg)
+    assert body == "wgmma"
+    assert dict(flash_attention.defines(cfg, True, 128, body))["WGMMA"] == 1
+    assert flash_attention.smem_bytes(cfg, body, 128, "bfloat16") == \
+        1024 + (bq + 2 * flash_attention.WGMMA_STAGES * bk) * 256 + 40
+    assert flash_attention.card_refusal(cfg, body, 128, "bfloat16") == ""
+    for dtype, d in (("float32", 128), ("bfloat16", 256)):
+        body = flash_attention.choose_body(dtype, d, cfg)
+        assert body == "mma"
+        assert dict(flash_attention.defines(cfg, True, d, body))["WGMMA"] == 0
+
+
+def test_body_launch_counts_reset_with_the_launch_counts(monkeypatch):
+    """A launch that names its body counts there and in ``launches``;
+    ``reset_launch_counts`` zeroes both, and BODY_LAUNCHES is the kernel's
+    own dict, so it sees the reset."""
+    kern = flash_attention.kernel
+    monkeypatch.setattr(kern, "entry", lambda defines: lambda *a: 0)
+    before = kern.launches
+    kern((), "bfloat16", body="wgmma")
+    kern((), "bfloat16", body="wgmma")
+    kern((), "float32", body="mma")
+    assert kern.launches == before + 3
+    assert flash_attention.BODY_LAUNCHES["wgmma"] >= 2
+    assert flash_attention.BODY_LAUNCHES is kern.body_launches
+    _build.reset_launch_counts()
+    assert kern.launches == 0 and flash_attention.BODY_LAUNCHES == {}
 
 
 def test_port_sources_import_neither_jax_nor_repro():

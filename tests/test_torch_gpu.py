@@ -148,19 +148,28 @@ def test_wallclock_evaluator_on_card(cuda_device):
 def test_flash_attention_matches_plain_version(cuda_device, dtype, causal,
                                                head_dim):
     """GQA 4/2 on a ragged S (200: no config's tiles divide it), the
-    default config and three sampled ones that fit a block's shared memory
-    at this head dim; the tuner's allclose and the row relative L2 bound."""
+    default config, the two-warpgroup 128 x 128 one and three sampled ones
+    that fit a block's shared memory at this head dim, so bfloat16 at
+    D=128 runs both bodies; the tuner's allclose and the row relative L2
+    bound, and each launch counted under the body choose_body names."""
     name = "flash_attention_causal" if causal else "flash_attention_full"
     b = get_kernel(name)
     args = [a.to(cuda_device)
             for a in b.make_probe_args((8, 4, 200, head_dim), dtype)]
     want = b.make_reference()(*args)
-    before = _build.CUDA_KERNELS["flash_attention"].launches
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    before = fa.launches
+    bodies_before = dict(flash_attention.BODY_LAUNCHES)
+
+    def body(c):
+        return flash_attention.choose_body(dtype, head_dim, c)
+
     fits = [c for c in b.space.enumerate()
-            if flash_attention.smem_bytes(c, head_dim, dtype)
+            if flash_attention.smem_bytes(c, body(c), head_dim, dtype)
             <= GPU_H100.smem_per_block]
+    two_wg = {"block_q": 128, "block_k": 128, "threads": 256}
     rng = np.random.default_rng(1)
-    configs = [b.default_config(),
+    configs = [b.default_config(), *([two_wg] if two_wg in fits else []),
                *(fits[i] for i in rng.choice(len(fits), 3, replace=False))]
     for cfg in configs:
         got = b.make(cfg, args_meta(*args))(*args)
@@ -169,8 +178,16 @@ def test_flash_attention_matches_plain_version(cuda_device, dtype, causal,
         assert out.ok, f"{cfg}: {out.error}"
         row = flash_attention.row_l2_error(got, want)
         assert row <= flash_attention.ROW_L2_TOL[dtype], f"{cfg}: {row}"
-    assert _build.CUDA_KERNELS["flash_attention"].launches == \
-        before + len(configs)
+    assert fa.launches == before + len(configs)
+    ran = {k: n - bodies_before.get(k, 0)
+           for k, n in flash_attention.BODY_LAUNCHES.items()
+           if n != bodies_before.get(k, 0)}
+    want_bodies = {}
+    for cfg in configs:
+        want_bodies[body(cfg)] = want_bodies.get(body(cfg), 0) + 1
+    assert ran == want_bodies
+    if dtype == "bfloat16" and head_dim == 128:
+        assert ran["wgmma"] >= 2 and set(ran) <= {"wgmma", "mma"}
 
 
 def test_flash_attention_refused_launch_raises(cuda_device):
@@ -179,7 +196,7 @@ def test_flash_attention_refused_launch_raises(cuda_device):
     raises, and nothing is counted."""
     b = get_kernel("flash_attention_causal")
     cfg = {"block_q": 128, "block_k": 128, "threads": 256}
-    assert flash_attention.smem_bytes(cfg, 256, "float32") > \
+    assert flash_attention.smem_bytes(cfg, "mma", 256, "float32") > \
         GPU_H100.smem_per_block
     args = [a.to(cuda_device)
             for a in b.make_probe_args((2, 2, 128, 256), "float32")]
