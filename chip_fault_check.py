@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Plant faults in the flash-attention (K4) and matmul (K3) kernels and read
-what the checks of ``chip_smoke.py`` make of them, on one H100.
+"""Plant faults in the flash-attention (K4), matmul (K3) and stencil (K1,
+K2b) kernels and read what the checks of ``chip_smoke.py`` make of them, on
+one H100.
 
     python3 chip_fault_check.py
 
@@ -16,7 +17,11 @@ Builds the kernels as they are and altered copies, in a temporary directory
 * ``drop_last_split`` (K3): the split-K reduction skips the last slice;
 * ``early_stage_reuse`` (K3): the bfloat16 body's ring releases a stage,
   and thread 0 refills it, before the wgmma that reads it has been waited
-  on.
+  on;
+* ``clamp_halo`` (K1): the tile body's halo clamps at the grid's edge
+  instead of wrapping (``tile::halo_index`` in ``stencil_tile.cuh``);
+* ``stale_z_queue`` (K2b): the single-field tile body's register queue of
+  f skips its shift on the second staged plane of each strip.
 
 The readings, as ``chip_smoke.py`` takes them:
 
@@ -33,7 +38,12 @@ The readings, as ``chip_smoke.py`` takes them:
    ``chip_smoke.LM_BF16_TOL``;
 3. K3 (sound kernel and K3 faults): phase 2's matmul check at 8192^3 in
    float32 and bfloat16, every config of ``chip_smoke.MATMUL_CONFIGS``, the
-   tuner's allclose; it passes only if every config does.
+   tuner's allclose; it passes only if every config does;
+4. K1 and K2b (sound kernels and the stencil faults): phase 2's tile-body
+   checks of advec_u and diff_uvw_single, every config of
+   ``chip_smoke.TILE_CONFIGS`` on the test shapes and the ragged one, in
+   float32 and bfloat16, the tuner's allclose; each passes only if every
+   case does.
 
 Exits non-zero unless the sound kernels pass every reading and every fault
 fails each reading of its kernel.
@@ -52,6 +62,7 @@ import torch
 import chip_smoke as smoke
 from repro_torch.configs import get_arch
 from repro_torch.kernels import _build, flash_attention, matmul, ref
+from repro_torch.kernels._stencil_common import stencil_defines
 from repro_torch.models import build_model
 from repro_torch.tuner.runner import verify_outcome
 
@@ -80,9 +91,19 @@ FAULTS = {
          "    const int done = t - 1;\n",
          "    wgmma_fence_operands<ACC>(acc);\n"
          "    const int done = t;\n"),)),
+    "clamp_halo": ("stencil_tile.cuh", (
+        ("  const int r = a % n;\n"
+         "  return r < 0 ? r + n : r;\n",
+         "  return a < 0 ? 0 : (a >= n ? n - 1 : a);\n"),)),
+    "stale_z_queue": ("diff_uvw.cu", (
+        ("        tile::push(fq, tile::to_f32(sf[front]));\n",
+         "        if (p != 1) tile::push(fq, tile::to_f32(sf[front]));\n"),)),
 }
 #: The readings taken for each source's faults.
-READINGS = {"flash_attention.cu": ("k4", "lm_c"), "matmul.cu": ("k3",)}
+READINGS = {"flash_attention.cu": ("k4", "lm_c"), "matmul.cu": ("k3",),
+            "stencil_tile.cuh": ("k1",), "diff_uvw.cu": ("k2b",)}
+#: The stencil readings: reading -> the kernel it holds.
+STENCIL_READINGS = {"k1": "advec_u", "k2b": "diff_uvw_single"}
 
 
 def use_source(csrc: Path, build: Path) -> None:
@@ -134,6 +155,29 @@ def k3_reading(big: dict) -> dict:
     return {"ok": all(c["ok"] for c in cases.values()), "cases": cases}
 
 
+def stencil_reading(name: str) -> dict:
+    """Phase 2's tile-body checks of stencil ``name``: every config of
+    ``TILE_CONFIGS`` on the test shapes and the ragged one, both dtypes."""
+    cfgs = [smoke.kernel_cfg(name, u) for u in smoke.TILE_CONFIGS]
+    src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
+    _build.build_many((src, stencil_defines(c)) for c in cfgs)
+    cases = {}
+    for dtype in smoke.DTYPES:
+        for shape in [*smoke.SMALL_STENCIL, smoke.RAGGED_STENCIL]:
+            args = smoke.stencil_args(name, shape, dtype)
+            for cfg in cfgs:
+                kernel, plain = smoke.calls(name, cfg, args)
+                got = kernel()
+                torch.cuda.synchronize()
+                out = verify_outcome(got, plain(), dtype)
+                cases[f"{dtype} {shape} {json.dumps(cfg)}"] = {
+                    "ok": out.ok, "max_abs_err": out.max_err}
+    return {"ok": all(c["ok"] for c in cases.values()),
+            "cases_failed": sum(not c["ok"] for c in cases.values()),
+            "cases": len(cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+
+
 def kernel_reading(args, want: torch.Tensor) -> dict:
     """Phase 2's K4 checks at the slice shape: every config of
     ``FA_SLICE_CONFIGS`` against the plain version's output ``want``."""
@@ -174,7 +218,7 @@ def main() -> int:
         for fault in (None, *FAULTS):
             if fault is None:
                 use_source(*sound)
-                checks = ("k4", "lm_c", "k3")
+                checks = ("k4", "lm_c", "k3", *STENCIL_READINGS)
             else:
                 csrc = faulted_copy(sound[0], Path(tmp), fault)
                 use_source(csrc, csrc / "build")
@@ -194,13 +238,18 @@ def main() -> int:
                 r["k3"] = k3_reading(big)
                 print(f"fault {name}: K3 8192^3 {json.dumps(r['k3'])}",
                       flush=True)
+            for reading, kernel in STENCIL_READINGS.items():
+                if reading in checks:
+                    r[reading] = stencil_reading(kernel)
+                    print(f"fault {name}: {kernel} tile body "
+                          f"{json.dumps(r[reading])}", flush=True)
             readings[name] = r
     use_source(*sound)
     print(f"tolerances: K4 allclose {smoke.tolerance('bfloat16')}, row "
           f"relative L2 {flash_attention.ROW_L2_TOL['bfloat16']}; (c) "
           f"{smoke.LM_BF16_TOL} (max abs, x max(1, max|ref|); and relative "
           f"L2); K3 allclose {smoke.tolerance('float32')} in float32, "
-          f"{smoke.tolerance('bfloat16')} in bfloat16")
+          f"{smoke.tolerance('bfloat16')} in bfloat16; K1 and K2b as K3")
     print(smoke.nvidia_smi())
     bad = [f"{name} {check}" for name, r in readings.items()
            for check in r if r[check]["ok"] != (name == "sound")]

@@ -9,9 +9,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (must be 9.0) and power limit;
 2. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
    (one nvcc per source and config, all started together) and hold each
-   CUDA kernel against its plain PyTorch version on the card: the small test
-   shapes in float32 and bfloat16 at three configs, the MicroHH grids 256^3
-   and 512^3, matmul in five configs (both bodies, split_k 1/2/4, stages
+   CUDA kernel against its plain PyTorch version on the card: the stencils
+   on the small test shapes and a ragged (5, 7, 9) in float32 and
+   bfloat16, in three ldg configs and (advec_u, diff_uvw_single) four tile
+   ones, and at the MicroHH grids 256^3 and 512^3 in the default and both
+   bodies, each launch counted under the body its config names; matmul in five configs (both bodies, split_k 1/2/4, stages
    2-4) at its test shapes, a ragged one, a bfloat16 one that TMA cannot
    take, (m, n, k) = (512, 512, 1024) and 8192^3 in float32 and bfloat16
    (naming the body each case ran), flash attention at GQA 4/4, 4/2 and
@@ -24,7 +26,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    equal to the first launch;
 4. the MicroHH loop: tune advec_u and diff_uvw at 256^3 in float32 and
    bfloat16, select each in tier "exact", then launch both at 512^3 through a
-   fallback tier and check them against their plain versions;
+   fallback tier and check them against their plain versions; the stencils'
+   launches are printed by body, and advec_u must have run its tile body;
 5. the LM slice on codeqwen1.5-7b at full width: (a) in float32 with 2
    layers, prefill logits (flash kernel) against the same prompt fed token
    by token through decode_step; (b) in bfloat16 with all 32 layers, prefill
@@ -34,7 +37,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    evaluations), and the next prefill selects tier "exact"; (e)
    ServeEngine in token mode answers 8 requests;
 6. times from CUDA events beside each kernel's bound, its plain version's
-   time and, for matmul and flash attention, the library call's; matmul in
+   time and, for matmul and flash attention, the library call's; K1, K2a
+   and K2b at 256^3 and 512^3 in both dtypes (K1 and K2b in the default,
+   the tuned config and both bodies at one block); matmul in
    bfloat16 too; flash attention at the slice shape in the default
    (wgmma), tuned and one mma config; matmul (512, 512, 1024) float32 and
    flash attention at the slice shape in every config of their spaces
@@ -97,13 +102,40 @@ BIG_MATMUL = (8192, 8192, 8192)
 #: and 8192^3.
 MATMUL_SHAPES = [*SMALL_MATMUL, (190, 136, 200), (100, 77, 50), QS_MATMUL,
                  BIG_MATMUL]
-STENCIL_CONFIGS = [
-    {},
-    {"block_size_x": 128, "block_size_y": 2, "block_size_z": 2,
-     "tile_factor_z": 4, "unravel_permutation": "zyx", "min_blocks_per_sm": 2},
-    {"block_size_x": 16, "block_size_y": 16, "block_size_z": 1,
-     "tile_factor_z": 8, "unravel_permutation": "yzx", "min_blocks_per_sm": 4},
+#: Stencil configs checked in the ldg body (updates of each builder's
+#: default): diff_uvw's default (the ldg body as it was before the tile
+#: body, advec_u's old default too), and two more.
+LDG_CONFIGS = [
+    {"body": "ldg", "block_size_x": 32, "block_size_y": 4, "block_size_z": 1,
+     "tile_factor_z": 2, "strip_z": 64, "unravel_permutation": "xyz",
+     "min_blocks_per_sm": 1},
+    {"body": "ldg", "block_size_x": 128, "block_size_y": 2, "block_size_z": 2,
+     "tile_factor_z": 4, "strip_z": 64, "unravel_permutation": "zyx",
+     "min_blocks_per_sm": 2},
+    {"body": "ldg", "block_size_x": 16, "block_size_y": 16, "block_size_z": 1,
+     "tile_factor_z": 8, "strip_z": 64, "unravel_permutation": "yzx",
+     "min_blocks_per_sm": 4},
 ]
+#: advec_u's default: a tile config, checked and timed in K2b too.
+TILE_DEFAULT = get_kernel("advec_u").default_config()
+#: The tile body at the ldg default's block, timed beside it in phase 6.
+TILE_LDG_BLOCK = {"body": "tile", "block_size_x": 32, "block_size_y": 4,
+                  "strip_z": 64, "unravel_permutation": "xyz",
+                  "min_blocks_per_sm": 1}
+#: Stencil configs checked in the tile body (advec_u, diff_uvw_single):
+#: the default, the ldg block, the smallest tile with the shortest strip,
+#: and the widest tile with the longest.
+TILE_CONFIGS = [
+    TILE_DEFAULT, TILE_LDG_BLOCK,
+    {"body": "tile", "block_size_x": 16, "block_size_y": 2, "strip_z": 32,
+     "unravel_permutation": "xyz", "min_blocks_per_sm": 1},
+    {"body": "tile", "block_size_x": 256, "block_size_y": 4, "strip_z": 128,
+     "unravel_permutation": "zyx", "min_blocks_per_sm": 1},
+]
+#: A ragged grid smaller than a tile: nx odd (no 16-byte copy fits a row),
+#: every axis shorter than some block's, the halo wider than the grid.
+RAGGED_STENCIL = (5, 7, 9)
+STENCILS = ("advec_u", "diff_uvw_fused", "diff_uvw_single")
 #: Updates of the default (128 x 128, block_k 8, 2 stages, split_k 1):
 #: split_k 1, 2 and 4, stages 2-4, 64- and 128-wide tiles; in bfloat16 one
 #: (block_m 64) or two (128) warpgroups at every stage count.
@@ -389,11 +421,18 @@ def phase_environment() -> str:
     return smi
 
 
+def stencil_configs(name: str) -> list[dict]:
+    """The configs phase 2 checks ``name`` in: LDG_CONFIGS and, where the
+    kernel has a tile body, TILE_CONFIGS."""
+    tile = TILE_CONFIGS if name != "diff_uvw_fused" else []
+    return [kernel_cfg(name, u) for u in [*LDG_CONFIGS, *tile]]
+
+
 def phase_build() -> None:
     specs = []
-    for upd in STENCIL_CONFIGS:
-        d = stencil_defines(kernel_cfg("advec_u", upd))
-        specs += [("advec_u.cu", d), ("diff_uvw.cu", d)]
+    for name in STENCILS:
+        src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
+        specs += [(src, stencil_defines(c)) for c in stencil_configs(name)]
     specs += matmul_specs()
     specs += flash_specs()
     specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
@@ -481,31 +520,57 @@ def phase_matmul() -> float:
     return headline
 
 
+def check_stencil(name: str, cfgs: list[dict], shape, dtype: str,
+                  label: str, verbose: bool = False) -> list[float]:
+    """Hold ``name`` against its plain version in each config on one
+    grid; raise unless each launch ran the body its config names. Returns
+    each config's max abs error."""
+    k = _build.CUDA_KERNELS[name]
+    args = stencil_args(name, shape, dtype)
+    errs = []
+    for cfg in cfgs:
+        body = cfg["body"]
+        n0 = k.body_launches.get(body, 0)
+        errs.append(compare(name, cfg, args, dtype, label,
+                            verbose=verbose)["max_abs_err"])
+        check(k.body_launches.get(body, 0) - n0 == (
+            3 if name == "diff_uvw_single" else 1),
+            f"{name} {label} {dtype} {cfg}: did not run the {body} body")
+    return errs
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the max error at
     the headline shapes."""
     headline = {}
     for dtype in DTYPES:
-        for name in ("advec_u", "diff_uvw_fused", "diff_uvw_single"):
-            errs = []
-            for shape in SMALL_STENCIL:
-                args = stencil_args(name, shape, dtype)
-                for upd in STENCIL_CONFIGS:
-                    errs.append(compare(name, kernel_cfg(name, upd), args,
-                                        dtype, "x".join(map(str, shape)),
-                                        verbose=False)["max_abs_err"])
-            print(f"check {name:16s} {len(errs)} cases ({len(SMALL_STENCIL)}"
-                  f" test shapes x 3 configs) {dtype:8s} max_abs_err="
-                  f"{max(errs):.3e} {tolerance(dtype)} ok", flush=True)
+        for name in STENCILS:
+            for body in ("ldg", "tile"):
+                cfgs = [c for c in stencil_configs(name)
+                        if c["body"] == body]
+                if not cfgs:
+                    continue
+                shapes = [*SMALL_STENCIL, RAGGED_STENCIL]
+                err = max(max(check_stencil(name, cfgs, shape, dtype,
+                                            "x".join(map(str, shape))))
+                          for shape in shapes)
+                print(f"check {name:16s} body={body:4s} {len(cfgs)} configs"
+                      f" x {len(shapes)} shapes (test shapes, ragged "
+                      f"{RAGGED_STENCIL}) {dtype:8s} max_abs_err={err:.3e} "
+                      f"{tolerance(dtype)} ok", flush=True)
     for dtype in DTYPES:
         for g in (256, 512):
-            for name in ("advec_u", "diff_uvw_fused", "diff_uvw_single"):
-                args = stencil_args(name, (g, g, g), dtype)
-                err = compare(name, kernel_cfg(name, {}), args, dtype,
-                              f"{g}^3")["max_abs_err"]
+            for name in STENCILS:
+                cfgs = [kernel_cfg(name, {})]
+                if name != "diff_uvw_fused":   # both bodies
+                    cfgs += [kernel_cfg(name, u)
+                             for u in (LDG_CONFIGS[0], TILE_DEFAULT)]
+                    cfgs = list({json.dumps(c, sort_keys=True): c
+                                 for c in cfgs}.values())
+                errs = check_stencil(name, cfgs, (g, g, g), dtype, f"{g}^3",
+                                     verbose=True)
                 if g == 512 and dtype == "float32":
-                    headline[name] = err
-                del args
+                    headline[name] = errs[0]   # the default config's
     headline["matmul"] = phase_matmul()
     fa = _build.CUDA_KERNELS["flash_attention"]
     for dtype in DTYPES:
@@ -558,9 +623,14 @@ def phase_main_path() -> tuple[dict, dict, dict]:
         check(st.tier not in ("exact", "default", "forced"),
               f"{name} 512^3 {dtype}: tier {st.tier} is not a fallback")
     counts = {k: _build.CUDA_KERNELS[k].launches for k in LOOP_KERNELS}
-    print(f"main-path launches: {json.dumps(counts)}", flush=True)
+    bodies = {k: dict(_build.CUDA_KERNELS[k].body_launches)
+              for k in STENCILS}
+    print(f"main-path launches: {json.dumps(counts)}; stencils by body: "
+          f"{json.dumps(bodies)}", flush=True)
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check(bodies["advec_u"].get("tile", 0) > 0,
+          "advec_u did not launch its tile body on the main path")
     return qs, mh, counts
 
 
@@ -825,6 +895,12 @@ def phase_lm() -> dict:
     return out
 
 
+def as_ldg(cfg: dict) -> dict:
+    """``cfg``'s block in the ldg body (strip_z pinned): the fused kernel's
+    config for a tile config of diff_uvw."""
+    return cfg | {"body": "ldg", "strip_z": 64}
+
+
 def phase_times(qs: dict, mh: dict) -> dict:
     rows = {}
     tuned_256 = {(sc.kernel, sc.dtype): res.best_config
@@ -839,15 +915,28 @@ def phase_times(qs: dict, mh: dict) -> dict:
             d_cfg = chosen[("diff_uvw", dtype)]
             rows[("advec_u", g, dtype)] = timing_row(
                 "advec_u", shape, dtype,
-                {"default": kernel_cfg("advec_u", {}), "tuned": a_cfg},
+                {"default": kernel_cfg("advec_u", {}), "tuned": a_cfg,
+                 "ldg": kernel_cfg("advec_u", LDG_CONFIGS[0]),
+                 "tile": kernel_cfg("advec_u", TILE_LDG_BLOCK)},
                 [*args[:3], args[4]])
-            for name, fuse in (("diff_uvw_fused", True),
-                               ("diff_uvw_single", False)):
-                rows[(name, g, dtype)] = timing_row(
-                    name, shape, dtype,
-                    {"default": kernel_cfg(name, {}),
-                     "tuned": d_cfg | {"fuse_outputs": fuse}}, args)
+            rows[("diff_uvw_fused", g, dtype)] = timing_row(
+                "diff_uvw_fused", shape, dtype,
+                {"default": kernel_cfg("diff_uvw_fused", {}),
+                 "tuned": as_ldg(d_cfg) | {"fuse_outputs": True}}, args)
+            rows[("diff_uvw_single", g, dtype)] = timing_row(
+                "diff_uvw_single", shape, dtype,
+                {"default": kernel_cfg("diff_uvw_single", {}),
+                 "tuned": d_cfg | {"fuse_outputs": False},
+                 "ldg": kernel_cfg("diff_uvw_single", LDG_CONFIGS[0]),
+                 "tile": kernel_cfg("diff_uvw_single", TILE_LDG_BLOCK),
+                 "tile_default": kernel_cfg("diff_uvw_single",
+                                            TILE_DEFAULT)}, args)
             del args
+    print(f"time stencils: default and tuned as selected; ldg and tile at "
+          f"one block ({TILE_LDG_BLOCK['block_size_x']} x "
+          f"{TILE_LDG_BLOCK['block_size_y']}); tile_default "
+          f"{json.dumps(TILE_DEFAULT)} (advec_u's default); tuned fused = "
+          f"the tuned block in the ldg body", flush=True)
     res = qs["result"]
     rows[("matmul", 512, "float32")] = timing_row(
         "matmul", QS_MATMUL, "float32",

@@ -3,7 +3,10 @@ with 5th-order interpolation on a periodic 3-D grid, as a tunable CUDA kernel
 (``csrc/advec_u.cu``) for the H100. Port of ``repro.kernels.advec_u``.
 
 The tuning space is the paper's CUDA one (see ``_stencil_common``), not the
-reference's TPU space. On CPU tensors the kernel's plain PyTorch version
+reference's TPU space, with a body axis: ``ldg`` (a thread walks a few
+points of its column, every neighbour read through ``__ldg``) and ``tile``
+(the default: blocks of 64 x 4 threads, two an SM, march strips of 128
+planes, staged in shared memory by ``cp.async``). On CPU tensors the kernel's plain PyTorch version
 runs; on CUDA tensors the CUDA kernel, built for the config, or an error.
 """
 
@@ -19,8 +22,9 @@ from repro_torch.core.builder import dtype_name, probe_array
 
 from . import ref as _ref
 from ._build import CudaKernel
-from ._stencil_common import (add_stencil_space, check_fields, require_cuda,
-                              stencil_defines)
+from ._stencil_common import (StencilPlan, add_stencil_space, check_fields,
+                              require_cuda, stencil_defines)
+from ._stencil_common import plan as _plan
 
 _P = ctypes.c_void_p
 kernel = CudaKernel("advec_u", "advec_u.cu", "advec_u_launch",
@@ -28,7 +32,14 @@ kernel = CudaKernel("advec_u", "advec_u.cu", "advec_u_launch",
                      ctypes.c_int, _P))
 
 builder = KernelBuilder("advec_u", source="repro_torch.kernels.advec_u")
-add_stencil_space(builder)
+add_stencil_space(builder, "advec_u", body="tile", block=(64, 4), strip=128,
+                  min_blocks=2)
+
+
+def plan(config, shape, dtype: str) -> StencilPlan:
+    """The launch plan of ``config`` on a (nz, ny, nx) grid in ``dtype``:
+    body, grid, strip and shared memory, in pure Python."""
+    return _plan("advec_u", config, shape, dtype)
 
 
 @builder.problem_size
@@ -48,7 +59,8 @@ def launch(config, u, v, w, scal) -> torch.Tensor:
     kernel(stencil_defines(config), dtype_name(u.dtype),
            u.data_ptr(), v.data_ptr(), w.data_ptr(), scal.data_ptr(),
            out.data_ptr(), nz, ny, nx,
-           torch.cuda.current_stream(u.device).cuda_stream)
+           torch.cuda.current_stream(u.device).cuda_stream,
+           body=config["body"])
     return out
 
 

@@ -20,7 +20,17 @@
 // Tunables, compiled in as defines (the paper's CUDA axes):
 //   BLOCK_SIZE_X, BLOCK_SIZE_Y, BLOCK_SIZE_Z, TILE_FACTOR_Z,
 //   UNRAVEL_A/B/C (block-order permutation), MIN_BLOCKS_PER_SM.
+//
+// TILE=1 builds the second body, `tile` (stencil_tile.cuh), in place of the
+// one above (`ldg`): 2-D blocks march a strip of STRIP_Z planes, staging u
+// with its radius-3 halo in x and y, v with a y halo of 1 and w alone into
+// a ring in shared memory by cp.async; each thread keeps u's 7 and w's 3 z
+// neighbours of its column in register queues. Same arithmetic, term for
+// term, and the same bf16 rounding on store.
 #include "common.cuh"
+#if TILE
+#include "stencil_tile.cuh"
+#endif
 
 namespace {
 
@@ -93,8 +103,8 @@ __global__ void __launch_bounds__(STENCIL_THREADS, MIN_BLOCKS_PER_SM)
 }
 
 template <typename T>
-int launch(const void* u, const void* v, const void* w, const void* scal,
-           void* out, int nz, int ny, int nx, cudaStream_t stream) {
+int launch_ldg(const void* u, const void* v, const void* w, const void* scal,
+               void* out, int nz, int ny, int nx, cudaStream_t stream) {
   const StencilGrid g = stencil_grid(nz, ny, nx);
   const dim3 block(BLOCK_SIZE_X, BLOCK_SIZE_Y, BLOCK_SIZE_Z);
   advec_u_kernel<T><<<static_cast<unsigned int>(g.blocks), block, 0,
@@ -104,6 +114,130 @@ int launch(const void* u, const void* v, const void* w, const void* scal,
       static_cast<T*>(out), nz, ny, nx, g.gx, g.gy, g.gz);
   return static_cast<int>(cudaGetLastError());
 }
+
+#if TILE
+constexpr int ADVEC_L = 3;  // radius in z
+constexpr int ADVEC_NBUF = ADVEC_L + 1 + tile::AHEAD;
+template <typename T, bool VEC = true>
+using StageU = tile::Stage<T, 3, 3, VEC>;
+template <typename T, bool VEC = true>
+using StageV = tile::Stage<T, 1, 0, VEC>;
+template <typename T, bool VEC = true>
+using StageW = tile::Stage<T, 0, 0, VEC>;
+
+// Shared memory of a tile block: the ring's buffers of u, v and w.
+template <typename T>
+constexpr int tile_smem_bytes() {
+  return ADVEC_NBUF * static_cast<int>(sizeof(T)) *
+         (StageU<T>::ELEMS + StageV<T>::ELEMS + StageW<T>::ELEMS);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, MIN_BLOCKS_PER_SM)
+    advec_u_tile_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                        const T* __restrict__ w,
+                        const float* __restrict__ scal, T* __restrict__ ut,
+                        int nz, int ny, int nx, int gx, int gy, int gz) {
+  using SU = StageU<T, VEC>;
+  using SV = StageV<T, VEC>;
+  using SW = StageW<T, VEC>;
+  constexpr int L = ADVEC_L, NBUF = ADVEC_NBUF;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* su = reinterpret_cast<T*>(smem);
+  T* sv = su + NBUF * SU::ELEMS;
+  T* sw = sv + NBUF * SV::ELEMS;
+
+  const tile::Block b = tile::block_of(nz, gx, gy, gz);
+  SU stu;
+  SV stv;
+  SW stw;
+  stu.init(b, ny, nx);
+  stv.init(b, ny, nx);
+  stw.init(b, ny, nx);
+  const float dxi = __ldg(scal), dyi = __ldg(scal + 1), dzi = __ldg(scal + 2);
+  const int i = b.x0 + threadIdx.x, j = b.y0 + threadIdx.y;
+  const bool active = i < nx && j < ny;
+  const int plane = ny * nx;
+  T* out = ut + b.z0 * plane + j * nx + i;  // advances a plane a step
+  // this thread's column in each field's buffer
+  const int own_u = (L + threadIdx.y) * SU::PITCH + SU::PX + threadIdx.x;
+  const int own_v = (1 + threadIdx.y) * SV::PITCH + threadIdx.x;
+  const int own_w = threadIdx.y * SW::PITCH + threadIdx.x;
+  // u at this column, planes k-3..k+3; w, planes k-1..k+1 (k: the plane
+  // computed in this step)
+  float uq[7] = {}, wq[3] = {};
+
+  tile::march<NBUF>(
+      (b.z1 - b.z0) + 2 * L,
+      [&](int p, int buf) {
+        const int zoff = tile::halo_index(b.z0 - L + p, nz) * plane;
+        stu.load(su + buf * SU::ELEMS, u, zoff, b, ny, nx);
+        stv.load(sv + buf * SV::ELEMS, v, zoff, b, ny, nx);
+        stw.load(sw + buf * SW::ELEMS, w, zoff, b, ny, nx);
+      },
+      [&](int p, int buf) {
+        tile::push(uq, tile::to_f32(su[buf * SU::ELEMS + own_u]));
+        const int lag2 = (buf + NBUF - 2) % NBUF;  // w's plane k + 1
+        tile::push(wq, tile::to_f32(sw[lag2 * SW::ELEMS + own_w]));
+        if (p < 2 * L || !active) return;
+        const int c = (buf + NBUF - L) % NBUF;  // plane k = z0 + p - 2L
+        const T* cu = su + c * SU::ELEMS + own_u;
+        const T* cv = sv + c * SV::ELEMS + own_v;
+        float ux[7], uy[7], vy[3];
+#pragma unroll
+        for (int s = 0; s < 7; ++s) {
+          ux[s] = tile::to_f32(cu[s - 3]);
+          uy[s] = tile::to_f32(cu[(s - 3) * SU::PITCH]);
+        }
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          vy[s] = tile::to_f32(cv[(s - 1) * SV::PITCH]);
+        const float fx_p = 0.5f * (ux[3] + ux[4]) * interp(ux, 1);
+        const float fx_m = 0.5f * (ux[2] + ux[3]) * interp(ux, 0);
+        const float fy_p = 0.5f * (vy[1] + vy[2]) * interp(uy, 1);
+        const float fy_m = 0.5f * (vy[0] + vy[1]) * interp(uy, 0);
+        const float fz_p = 0.5f * (wq[1] + wq[2]) * interp(uq, 1);
+        const float fz_m = 0.5f * (wq[0] + wq[1]) * interp(uq, 0);
+        const float r = -(dxi * (fx_p - fx_m) + dyi * (fy_p - fy_m) +
+                          dzi * (fz_p - fz_m));
+        store(out, r);
+        out += plane;
+      });
+}
+
+template <typename T, bool VEC>
+int launch_tile(const void* u, const void* v, const void* w, const void* scal,
+                void* out, int nz, int ny, int nx, cudaStream_t stream) {
+  const StencilGrid g = tile::grid(nz, ny, nx);
+  constexpr int smem = tile_smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      advec_u_tile_kernel<T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  advec_u_tile_kernel<T, VEC><<<static_cast<unsigned int>(g.blocks),
+                                dim3(BLOCK_SIZE_X, BLOCK_SIZE_Y), smem,
+                                stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(v),
+      static_cast<const T*>(w), static_cast<const float*>(scal),
+      static_cast<T*>(out), nz, ny, nx, g.gx, g.gy, g.gz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* u, const void* v, const void* w, const void* scal,
+           void* out, int nz, int ny, int nx, cudaStream_t stream) {
+  const void* staged[3] = {u, v, w};
+  if (tile::vectorizable<T>(nx, staged, 3))
+    return launch_tile<T, true>(u, v, w, scal, out, nz, ny, nx, stream);
+  return launch_tile<T, false>(u, v, w, scal, out, nz, ny, nx, stream);
+}
+#else
+template <typename T>
+int launch(const void* u, const void* v, const void* w, const void* scal,
+           void* out, int nz, int ny, int nx, cudaStream_t stream) {
+  return launch_ldg<T>(u, v, w, scal, out, nz, ny, nx, stream);
+}
+#endif
 
 }  // namespace
 

@@ -18,7 +18,17 @@
 // __ldg with periodic wrap; overlapping reads between blocks are legal on
 // CUDA, so the TPU's halo side slabs and divisibility rule are gone, and the
 // ragged edge is masked. Compute is f32.
+//
+// TILE=1 builds the single-field kernel's second body, `tile`
+// (stencil_tile.cuh), in place of the one above (`ldg`): 2-D blocks march a
+// strip of STRIP_Z planes, staging f and evisc with a halo of 1 in x and y
+// into a ring in shared memory by cp.async; each thread keeps the 3 z
+// neighbours of its column of f and of evisc in register queues. Same
+// arithmetic, term for term. The fused kernel has the ldg body only.
 #include "common.cuh"
+#if TILE
+#include "stencil_tile.cuh"
+#endif
 
 namespace {
 
@@ -137,8 +147,8 @@ int launch_fused(const void* u, const void* v, const void* w,
 }
 
 template <typename T>
-int launch_single(const void* f, const void* evisc, const void* scal,
-                  void* ft, int nz, int ny, int nx, cudaStream_t stream) {
+int launch_single_ldg(const void* f, const void* evisc, const void* scal,
+                      void* ft, int nz, int ny, int nx, cudaStream_t stream) {
   const StencilGrid g = stencil_grid(nz, ny, nx);
   const dim3 block(BLOCK_SIZE_X, BLOCK_SIZE_Y, BLOCK_SIZE_Z);
   diff_uvw_single_kernel<T><<<static_cast<unsigned int>(g.blocks), block, 0,
@@ -148,6 +158,109 @@ int launch_single(const void* f, const void* evisc, const void* scal,
       g.gy, g.gz);
   return static_cast<int>(cudaGetLastError());
 }
+
+#if TILE
+constexpr int DIFF_L = 1;
+constexpr int DIFF_NBUF = DIFF_L + 1 + tile::AHEAD;
+template <typename T, bool VEC = true>
+using StageF = tile::Stage<T, 1, 1, VEC>;
+
+// Shared memory of a tile block: the ring's buffers of f and evisc.
+template <typename T>
+constexpr int tile_smem_bytes() {
+  return DIFF_NBUF * static_cast<int>(sizeof(T)) * 2 * StageF<T>::ELEMS;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, MIN_BLOCKS_PER_SM)
+    diff_uvw_single_tile_kernel(const T* __restrict__ f,
+                                const T* __restrict__ evisc,
+                                const float* __restrict__ scal,
+                                T* __restrict__ ft, int nz, int ny, int nx,
+                                int gx, int gy, int gz) {
+  using S = StageF<T, VEC>;
+  constexpr int L = DIFF_L, NBUF = DIFF_NBUF;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sf = reinterpret_cast<T*>(smem);
+  T* se = sf + NBUF * S::ELEMS;
+
+  const tile::Block b = tile::block_of(nz, gx, gy, gz);
+  S stf, ste;
+  stf.init(b, ny, nx);
+  ste.init(b, ny, nx);
+  const float dxi = __ldg(scal), dyi = __ldg(scal + 1), dzi = __ldg(scal + 2);
+  const int i = b.x0 + threadIdx.x, j = b.y0 + threadIdx.y;
+  const bool active = i < nx && j < ny;
+  const int plane = ny * nx;
+  T* out = ft + b.z0 * plane + j * nx + i;  // advances a plane a step
+  const int own = (L + threadIdx.y) * S::PITCH + S::PX + threadIdx.x;
+  // f and evisc at this column, planes k-1..k+1 (k: the plane computed in
+  // this step)
+  float fq[3] = {}, eq[3] = {};
+
+  tile::march<NBUF>(
+      (b.z1 - b.z0) + 2 * L,
+      [&](int p, int buf) {
+        const int zoff = tile::halo_index(b.z0 - L + p, nz) * plane;
+        stf.load(sf + buf * S::ELEMS, f, zoff, b, ny, nx);
+        ste.load(se + buf * S::ELEMS, evisc, zoff, b, ny, nx);
+      },
+      [&](int p, int buf) {
+        const int front = buf * S::ELEMS + own;
+        tile::push(fq, tile::to_f32(sf[front]));
+        tile::push(eq, tile::to_f32(se[front]));
+        if (p < 2 * L || !active) return;
+        // plane k = z0 + p - 2L
+        const int c = ((buf + NBUF - L) % NBUF) * S::ELEMS + own;
+        float fx[3], fy[3], ex[3], ey[3];
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          fx[s] = tile::to_f32(sf[c + s - 1]);
+          fy[s] = tile::to_f32(sf[c + (s - 1) * S::PITCH]);
+          ex[s] = tile::to_f32(se[c + s - 1]);
+          ey[s] = tile::to_f32(se[c + (s - 1) * S::PITCH]);
+        }
+        store(out, diff_term(fx, ex, dxi) + diff_term(fy, ey, dyi) +
+                       diff_term(fq, eq, dzi));
+        out += plane;
+      });
+}
+
+template <typename T, bool VEC>
+int launch_single_tile(const void* f, const void* evisc, const void* scal,
+                       void* ft, int nz, int ny, int nx, cudaStream_t stream) {
+  const StencilGrid g = tile::grid(nz, ny, nx);
+  constexpr int smem = tile_smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      diff_uvw_single_tile_kernel<T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  diff_uvw_single_tile_kernel<T, VEC><<<static_cast<unsigned int>(g.blocks),
+                                        dim3(BLOCK_SIZE_X, BLOCK_SIZE_Y),
+                                        smem, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(evisc),
+      static_cast<const float*>(scal), static_cast<T*>(ft), nz, ny, nx, g.gx,
+      g.gy, g.gz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_single(const void* f, const void* evisc, const void* scal,
+                  void* ft, int nz, int ny, int nx, cudaStream_t stream) {
+  const void* staged[2] = {f, evisc};
+  if (tile::vectorizable<T>(nx, staged, 2))
+    return launch_single_tile<T, true>(f, evisc, scal, ft, nz, ny, nx,
+                                       stream);
+  return launch_single_tile<T, false>(f, evisc, scal, ft, nz, ny, nx,
+                                      stream);
+}
+#else
+template <typename T>
+int launch_single(const void* f, const void* evisc, const void* scal,
+                  void* ft, int nz, int ny, int nx, cudaStream_t stream) {
+  return launch_single_ldg<T>(f, evisc, scal, ft, nz, ny, nx, stream);
+}
+#endif
 
 }  // namespace
 

@@ -4,7 +4,10 @@ with a variable eddy viscosity, halo-1 stencil, as tunable CUDA kernels
 
 ``fuse_outputs`` stays an axis of the space: True launches the fused kernel
 (inputs read once, three outputs), False the single-field kernel once per
-field (evisc read three times). On CPU tensors the plain PyTorch versions
+field (evisc read three times). The body axis (see ``_stencil_common``)
+reaches the single-field kernel only: ``tile`` is allowed with
+``fuse_outputs=False`` alone, and the default stays the fused ``ldg``
+config. On CPU tensors the plain PyTorch versions
 run: ``diff_uvw_ref`` for the fused variant, ``diff_one_ref`` per field for
 the single one.
 """
@@ -21,8 +24,9 @@ from repro_torch.core.builder import dtype_name, probe_array
 
 from . import ref as _ref
 from ._build import CudaKernel
-from ._stencil_common import (add_stencil_space, check_fields, require_cuda,
-                              stencil_defines)
+from ._stencil_common import (StencilPlan, add_stencil_space, check_fields,
+                              require_cuda, stencil_defines)
+from ._stencil_common import plan as _plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 fused_kernel = CudaKernel("diff_uvw_fused", "diff_uvw.cu", "diff_uvw_fused",
@@ -31,8 +35,17 @@ single_kernel = CudaKernel("diff_uvw_single", "diff_uvw.cu",
                            "diff_uvw_single", (_P,) * 4 + (_I, _I, _I, _P))
 
 builder = KernelBuilder("diff_uvw", source="repro_torch.kernels.diff_uvw")
-add_stencil_space(builder)
+add_stencil_space(builder, "diff_uvw_single")
 builder.tune("fuse_outputs", (True, False), default=True)
+builder.restriction("body == 'ldg' or not fuse_outputs")
+
+
+def plan(config, shape, dtype: str) -> StencilPlan:
+    """The launch plan of one of ``config``'s launches (the fused kernel's,
+    or one of the single-field kernel's three) on a (nz, ny, nx) grid in
+    ``dtype``, in pure Python."""
+    kernel = "diff_uvw_fused" if config["fuse_outputs"] else "diff_uvw_single"
+    return _plan(kernel, config, shape, dtype)
 
 
 @builder.problem_size
@@ -44,6 +57,8 @@ def launch_fused(config, u, v, w, evisc, scal):
     """(ut, vt, wt) in one pass: the fused CUDA kernel on CUDA tensors, the
     plain version on CPU tensors."""
     check_fields((u, v, w, evisc), scal)
+    if config["body"] != "ldg":
+        raise ValueError("diff_uvw_fused has the ldg body only")
     if u.device.type == "cpu":
         return _ref.diff_uvw_ref(u, v, w, evisc, scal)
     require_cuda(u, "diff_uvw_fused")
@@ -52,7 +67,7 @@ def launch_fused(config, u, v, w, evisc, scal):
     fused_kernel(stencil_defines(config), dtype_name(u.dtype),
                  u.data_ptr(), v.data_ptr(), w.data_ptr(), evisc.data_ptr(),
                  scal.data_ptr(), *(o.data_ptr() for o in outs), nz, ny, nx,
-                 torch.cuda.current_stream(u.device).cuda_stream)
+                 torch.cuda.current_stream(u.device).cuda_stream, body="ldg")
     return outs
 
 
@@ -68,7 +83,8 @@ def launch_single(config, f, evisc, scal):
     single_kernel(stencil_defines(config), dtype_name(f.dtype),
                   f.data_ptr(), evisc.data_ptr(), scal.data_ptr(),
                   out.data_ptr(), nz, ny, nx,
-                  torch.cuda.current_stream(f.device).cuda_stream)
+                  torch.cuda.current_stream(f.device).cuda_stream,
+                  body=config["body"])
     return out
 
 

@@ -74,12 +74,14 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               kv_offset: int = 0):
     """Multi-head attention, q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
 
-    Calls that meet :func:`flashable` go to the flash kernel (its plain
+    Calls that meet :func:`flashable` and whose head dim the kernel takes
+    (``flash_attention.HEAD_DIMS``) go to the flash kernel (its plain
     version for CPU tensors); the rest run the full-featured plain
     ``ref.attention_ref`` on the tensors' device, as the reference runs its
     oracle for them."""
-    if not flashable(q, k, window=window, softcap=softcap, scale=scale,
-                     kv_offset=kv_offset):
+    if q.shape[3] not in _fa_mod.HEAD_DIMS or not flashable(
+            q, k, window=window, softcap=softcap, scale=scale,
+            kv_offset=kv_offset):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, scale=scale,
                                  kv_offset=kv_offset)

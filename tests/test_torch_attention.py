@@ -232,6 +232,25 @@ def test_ops_attention_routes_flashable_calls_through_the_kernel(
     assert len(kernel.stats) == n0 + 1
 
 
+@pytest.mark.parametrize("head_dim", [384, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_at_head_dims_the_kernel_does_not_take(rng, causal,
+                                                             head_dim):
+    """D 384 and 512 meet the reference's flash predicate, but K4 takes
+    only ``HEAD_DIMS``: the port computes such calls with the plain
+    ``ref.attention_ref``, not through the flash kernel, and returns what
+    the reference's ``ops.attention`` returns (float32, the tuner's
+    tolerance: rtol 1e-5, atol 1e-5 x max(1, max|ref|))."""
+    assert head_dim not in flash_attention.HEAD_DIMS
+    q, k, v = _qkv(rng, 1, 2, 2, 128, 128, head_dim)
+    want = repro_ops.attention(q, k, v, causal=causal)
+    kernel = ops.fa_causal_kernel if causal else ops.fa_full_kernel
+    n0 = len(kernel.stats)
+    got = ops.attention(*_port([q, k, v]), causal=causal)
+    assert len(kernel.stats) == n0
+    _assert_close(got, want)
+
+
 def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
     """A tensor on the meta device, standing in for one on a card, gets
     the kernel or an error, never the plain version."""

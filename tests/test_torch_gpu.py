@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from repro_torch.core import GPU_H100, WisdomKernel, args_meta, get_kernel
-from repro_torch.kernels import _build, flash_attention, matmul, ref
+from repro_torch.kernels import (_build, advec_u, diff_uvw, flash_attention,
+                                 matmul, ref)
+from repro_torch.kernels._stencil_common import stencil_defines
 from repro_torch.tuner import WallClockEvaluator, verify_outcome
 
 pytestmark = pytest.mark.gpu
@@ -44,6 +46,94 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, dtype):
         torch.cuda.synchronize()
         out = verify_outcome(got, want, dtype)
         assert out.ok, f"{cfg}: {out.error}"
+
+
+#: Grids for the stencil bodies: ragged and smaller than a tile (nx odd:
+#: no 16-byte copy fits a row), the smallest the kernels take, and two
+#: ragged ones wider than some tiles.
+STENCIL_BODY_SHAPES = [(5, 7, 9), (3, 3, 3), (24, 40, 136), (33, 17, 200)]
+#: Updates of each builder's default: one ldg config and three tile ones
+#: (the default shape, the smallest tile with the shortest strip, the
+#: widest with the longest).
+STENCIL_BODY_CONFIGS = [
+    {"body": "ldg", "block_size_x": 32, "block_size_y": 4, "strip_z": 64,
+     "min_blocks_per_sm": 1},
+    {"body": "tile", "block_size_x": 64, "block_size_y": 4, "strip_z": 128,
+     "min_blocks_per_sm": 2},
+    {"body": "tile", "block_size_x": 16, "block_size_y": 2, "strip_z": 32,
+     "min_blocks_per_sm": 1},
+    {"body": "tile", "block_size_x": 256, "block_size_y": 4, "strip_z": 128,
+     "unravel_permutation": "zyx", "min_blocks_per_sm": 1},
+]
+
+
+def _stencil_fields(cuda_device, shape, n, dtype, offset):
+    """n seeded fields (the last nonnegative when n == 4) on the card; with
+    ``offset`` each starts one element into its buffer, so no field is
+    16-byte aligned and the tile body copies element by element."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    out = []
+    for i in range(n):
+        f = torch.randn(shape, generator=g, device=cuda_device)
+        if n == 4 and i == 3:
+            f = f.abs() + 0.1
+        f = f.to(getattr(torch, dtype))
+        if offset:
+            buf = torch.empty(f.numel() + 1, dtype=f.dtype, device=cuda_device)
+            buf[1:].copy_(f.flatten())
+            f = buf[1:].view(shape)
+        out.append(f)
+    return out
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("shape", STENCIL_BODY_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single"])
+def test_stencil_bodies_match_plain_version(cuda_device, name, dtype, shape,
+                                            offset):
+    """Both bodies of K1 and K2b against the plain version under the
+    tuner's tolerance, on ragged and tiny grids, aligned or not; each
+    launch counted under the body its config names."""
+    scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], device=cuda_device)
+    u, v, w, e = _stencil_fields(cuda_device, shape, 4, dtype, offset)
+    b = get_kernel("advec_u" if name == "advec_u" else "diff_uvw")
+    extra = {} if name == "advec_u" else {"fuse_outputs": False}
+    configs = [b.default_config() | extra | upd
+               for upd in STENCIL_BODY_CONFIGS]
+    src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
+    _build.build_many((src, stencil_defines(c)) for c in configs)
+    k = _build.CUDA_KERNELS[name]
+    for cfg in configs:
+        assert b.space.is_valid(cfg), cfg
+        before = k.body_launches.get(cfg["body"], 0)
+        if name == "advec_u":
+            got = advec_u.launch(cfg, u, v, w, scal)
+            want = ref.advec_u_ref(u, v, w, scal)
+        else:
+            got = diff_uvw.launch_single(cfg, u, e, scal)
+            want = ref.diff_one_ref(u, e, scal)
+        torch.cuda.synchronize()
+        out = verify_outcome(got, want, dtype)
+        assert out.ok, f"{cfg}: {out.error}"
+        assert k.body_launches[cfg["body"]] == before + 1
+
+
+def test_tile_launch_the_card_refuses_raises(cuda_device):
+    """A tile block of 256 x 8 threads (outside the space: 2048 threads)
+    is refused by nvcc or by the card: the wrapper raises, counts nothing,
+    and does not fall back to the other body or the plain version."""
+    cfg = advec_u.builder.default_config() | {"block_size_x": 256,
+                                              "block_size_y": 8}
+    assert not advec_u.builder.space.is_valid(cfg)
+    u, v, w = _stencil_fields(cuda_device, (16, 16, 256), 3, "float32",
+                              False)
+    scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], device=cuda_device)
+    k = _build.CUDA_KERNELS["advec_u"]
+    before = (k.launches, dict(k.body_launches))
+    with pytest.raises((_build.KernelBuildError, _build.KernelLaunchError)):
+        advec_u.launch(cfg, u, v, w, scal)
+    assert (k.launches, dict(k.body_launches)) == before
 
 
 #: (dtype, shape) -> the body the shape rule gives it: (128, 96, 72) is
@@ -188,6 +278,29 @@ def test_flash_attention_matches_plain_version(cuda_device, dtype, causal,
     assert ran == want_bodies
     if dtype == "bfloat16" and head_dim == 128:
         assert ran["wgmma"] >= 2 and set(ran) <= {"wgmma", "mma"}
+
+
+@pytest.mark.parametrize("head_dim", [384, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_head_dims_without_a_kernel_run_plain(cuda_device,
+                                                            causal, head_dim):
+    """K4 has no counterpart at D 384 and 512 (the reference's kernel takes
+    any D % 128 == 0): ops.attention computes such calls on CUDA tensors
+    with the plain ref.attention_ref and launches no flash kernel. A K4
+    that takes these head dims replaces this routing, and this test."""
+    from repro_torch.kernels import ops
+
+    assert head_dim not in flash_attention.HEAD_DIMS
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 128, head_dim), generator=g,
+                           device=cuda_device) for _ in range(3))
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    before = (fa.launches, dict(flash_attention.BODY_LAUNCHES))
+    got = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches, dict(flash_attention.BODY_LAUNCHES)) == before
+    want = ref.attention_ref(q, k, v, causal=causal)
+    assert verify_outcome(got, want, "float32").ok
 
 
 def test_flash_attention_refused_launch_raises(cuda_device):

@@ -351,3 +351,231 @@ def test_space_bounds_threads_per_block():
             assert 32 <= threads <= 1024
             assert threads * cfg["min_blocks_per_sm"] <= 2048
         assert space.is_valid(space.default_config())
+
+
+# ------------------------------------------- stencils: bodies, space, plan
+
+STENCIL_PLAN_SHAPES = [(5, 7, 9), (3, 3, 3), (24, 40, 136), (33, 17, 200),
+                       (130, 20, 24), (8, 8, 128)]
+
+
+def _stencil_configs(name):
+    """The default, tile configs at both ends of the space and an ldg one
+    of ``name``'s space ("advec_u", "diff_uvw_single" or
+    "diff_uvw_fused")."""
+    b = get_kernel("advec_u" if name == "advec_u" else "diff_uvw")
+    base = b.default_config() | (
+        {} if name == "advec_u" else {"fuse_outputs": name == "diff_uvw_fused"})
+    tile = base | {"body": "tile", "block_size_z": 1, "tile_factor_z": 2}
+    cfgs = [base,
+            base | {"body": "ldg", "block_size_x": 128, "block_size_y": 2,
+                    "block_size_z": 2, "tile_factor_z": 4, "strip_z": 64,
+                    "min_blocks_per_sm": 1}]
+    if name != "diff_uvw_fused":
+        cfgs += [tile | {"block_size_x": 16, "block_size_y": 2,
+                         "strip_z": 32, "min_blocks_per_sm": 1},
+                 tile | {"block_size_x": 256, "block_size_y": 4,
+                         "strip_z": 128, "min_blocks_per_sm": 1},
+                 tile | {"block_size_x": 32, "block_size_y": 16,
+                         "strip_z": 32, "min_blocks_per_sm": 2}]
+    for c in cfgs:
+        assert b.space.is_valid(c), c
+    return cfgs
+
+
+def _plan(name, cfg, shape, dtype):
+    mod = advec_u if name == "advec_u" else diff_uvw
+    return mod.plan(cfg, shape, dtype)
+
+
+@pytest.mark.parametrize("shape", STENCIL_PLAN_SHAPES, ids=str)
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single",
+                                  "diff_uvw_fused"])
+def test_stencil_plan_covers_every_point_once(name, shape):
+    """Every output point lies in exactly one block's tile and strip, on
+    ragged grids and on grids smaller than a tile, in both bodies."""
+    for cfg in _stencil_configs(name):
+        p = _plan(name, cfg, shape, "float32")
+        assert p.kernel == name and p.body == (
+            "ldg" if name == "diff_uvw_fused" else cfg["body"])
+        covered = np.zeros(shape, np.int64)
+        gx, gy, gz = p.grid
+        for bz in range(gz):
+            for by in range(gy):
+                for bx in range(gx):
+                    (x0, x1), (y0, y1), (z0, z1) = p.block_extent(bx, by, bz)
+                    assert x0 < x1 and y0 < y1 and z0 < z1
+                    covered[z0:z1, y0:y1, x0:x1] += 1
+        assert (covered == 1).all()
+        if p.body == "tile":
+            assert p.tile == (cfg["block_size_x"], cfg["block_size_y"],
+                              cfg["strip_z"]) and p.block[2] == 1
+            radius = 3 if name == "advec_u" else 1
+            assert p.staged_planes == min(cfg["strip_z"], shape[0]) \
+                + 2 * radius
+            assert p.ring == radius + 1 + 2
+        else:
+            assert p.smem_bytes == p.staged_planes == 0
+            assert p.tile[2] == cfg["block_size_z"] * cfg["tile_factor_z"]
+
+
+def _staged_indices(p, halo, bx, by, z, vec):
+    """The grid cells (z, y, x arrays, each of the staged plane's (rows,
+    pitch)) that tile block (bx, by) stages for one field at staged plane
+    z (z0 - radius + p, not yet wrapped), as ``tile::Stage`` computes them
+    in ``csrc/stencil_tile.cuh``: rows and 16-byte chunks wrapped by a true
+    modulo when ``vec``, single elements otherwise."""
+    from repro_torch.kernels._stencil_common import chunk, stage_dims
+
+    nz, ny, nx = p.shape
+    rows, pitch, px = stage_dims(halo, p.block[0], p.block[1], p.dtype)
+    x0, y0 = bx * p.tile[0], by * p.tile[1]
+    ys = np.mod(y0 - halo[0] + np.arange(rows), ny)
+    if vec:
+        v = chunk(p.dtype)
+        cx = np.mod((x0 - px) // v + np.arange(pitch) // v, nx // v)
+        xs = cx * v + np.arange(pitch) % v
+    else:
+        xs = np.mod(x0 - px + np.arange(pitch), nx)
+    return (np.full((rows, pitch), np.mod(z, nz)),
+            np.broadcast_to(ys[:, None], (rows, pitch)),
+            np.broadcast_to(xs[None, :], (rows, pitch)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 7, 9), (4, 6, 16), (7, 3, 48)],
+                         ids=str)
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single"])
+def test_tile_halo_indices_wrap_like_np_roll(name, shape, dtype):
+    """The cells a tile block stages for each field, plane and block, by
+    chunks and element by element, are the cells np.roll brings to the
+    staged window, the window repeated where the tile and its halo are
+    wider than the grid."""
+    from repro_torch.kernels._stencil_common import (TILE_STENCILS, chunk,
+                                                     stage_dims)
+
+    nz, ny, nx = shape
+    field = np.arange(nz * ny * nx).reshape(shape)
+    radius, halos = TILE_STENCILS[name]
+    # aligned fields whose rows are whole chunks go by 16-byte copies
+    # (tile::vectorizable); every grid can go element by element
+    vecs = {False, nx % chunk(dtype) == 0}
+    for cfg in _stencil_configs(name)[2:]:
+        p = _plan(name, cfg, shape, dtype)
+        for halo in halos:
+            rows, pitch, px = stage_dims(halo, *p.tile[:2], dtype)
+            for bx in range(p.grid[0]):
+                for by in range(p.grid[1]):
+                    x0, y0 = bx * p.tile[0], by * p.tile[1]
+                    for z in (-radius, 0, nz - 1, nz + radius - 1):
+                        rolled = np.roll(field[z % nz], (halo[0] - y0,
+                                                         px - x0), (0, 1))
+                        want = np.tile(rolled, (-(-rows // ny),
+                                                -(-pitch // nx)))
+                        want = want[:rows, :pitch]
+                        for vec in vecs:
+                            got = field[_staged_indices(p, halo, bx, by,
+                                                        z, vec)]
+                            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw"])
+def test_every_tile_config_fits_shared_memory(name):
+    """Every valid tile config's shared memory fits a block in both dtypes,
+    and ``min_blocks_per_sm`` of them (with the card's 1 KB a block) fit
+    an SM; the plan refuses what does not fit, and the space leaves it
+    out."""
+    from repro_torch.kernels import _stencil_common as sc
+
+    mod = advec_u if name == "advec_u" else diff_uvw
+    space = get_kernel(name).space
+    tiles = [c for c in space.enumerate() if c["body"] == "tile"]
+    assert len(tiles) > 500
+    for cfg in tiles:
+        assert cfg["block_size_z"] == 1 and cfg["tile_factor_z"] == 2
+        assert cfg["block_size_y"] >= 2
+        for dtype in ("float32", "bfloat16"):
+            p = mod.plan(cfg, (256, 256, 256), dtype)
+            assert p.body == "tile" and p.refusal == ""
+            assert 0 < p.smem_bytes <= 232_448
+            assert cfg["min_blocks_per_sm"] * (
+                p.smem_bytes + sc.SMEM_RESERVED_PER_BLOCK) <= sc.SMEM_PER_SM
+    big = tiles[0] | {"block_size_x": 256, "block_size_y": 4,
+                      "min_blocks_per_sm": 2}
+    p = sc.plan("advec_u", big, (64, 64, 64), "float32")
+    assert p.smem_bytes == 6 * 4 * (10 * 264 + 6 * 256 + 4 * 256)
+    assert "of an SM" in p.refusal
+    assert not get_kernel("advec_u").space.is_valid(
+        big | {"body": "tile", "strip_z": 64})
+
+
+def test_stencil_defaults_valid_and_no_two_configs_launch_one_kernel():
+    """The defaults are valid (advec_u's runs the tile body, diff_uvw's is
+    the fused ldg config it always was), and no two valid configs of a
+    space build and launch the same kernel."""
+    from repro_torch.kernels._stencil_common import stencil_defines
+
+    a = get_kernel("advec_u").space
+    d = get_kernel("diff_uvw").space
+    assert a.is_valid(a.default_config()) and d.is_valid(d.default_config())
+    assert a.default_config()["body"] == "tile"
+    assert d.default_config() == {
+        "body": "ldg", "block_size_x": 32, "block_size_y": 4,
+        "block_size_z": 1, "tile_factor_z": 2, "strip_z": 64,
+        "unravel_permutation": "xyz", "min_blocks_per_sm": 1,
+        "fuse_outputs": True}
+    for space, kernel_of in (
+            (a, lambda c: "advec_u"),
+            (d, lambda c: "fused" if c["fuse_outputs"] else "single")):
+        seen = {}
+        for cfg in space.enumerate():
+            key = (kernel_of(cfg), stencil_defines(cfg))
+            assert key not in seen, (cfg, seen.get(key))
+            seen[key] = cfg
+            assert dict(stencil_defines(cfg))["TILE"] == int(
+                cfg["body"] == "tile")
+
+
+def test_fuse_outputs_admits_only_ldg():
+    d = get_kernel("diff_uvw")
+    fused = [c for c in d.space.enumerate() if c["fuse_outputs"]]
+    assert fused and all(c["body"] == "ldg" for c in fused)
+    tile = d.default_config() | {"body": "tile"}
+    assert not d.space.is_valid(tile)
+    assert d.space.is_valid(tile | {"fuse_outputs": False})
+    u, v, w, e, scal = _cpu_args("diff_uvw")
+    with pytest.raises(ValueError, match="ldg body only"):
+        diff_uvw.launch_fused(tile, u, v, w, e, scal)
+
+
+def test_wisdom_from_before_the_body_axis_is_foreign():
+    """A record written before the body axis (no ``body``, no ``strip_z``)
+    is not launchable: WisdomKernel counts it as foreign and drops it."""
+    from repro_torch.core import WisdomKernel
+
+    k = WisdomKernel(get_kernel("advec_u"))
+    old = {key: val for key, val in k.builder.default_config().items()
+           if key not in ("body", "strip_z")}
+    assert not k._launchable(old)
+    assert k._launchable(k.builder.default_config())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single"])
+def test_both_bodies_run_the_plain_version_on_cpu(rng, name, dtype):
+    """A CPU tensor gets the plain version in either body, on a ragged grid
+    smaller than a tile, held to the reference's oracle."""
+    shape = (5, 7, 9)
+    u, v, w, e = _arrays(rng, [shape] * 4, dtype, square=(3,))
+    scal = torch.from_numpy(SCAL)
+    args = _port([u, v, w, e], dtype)
+    if name == "advec_u":
+        want = repro_ref.advec_u_ref(u, v, w, SCAL)
+    else:
+        want = repro_ref.diff_uvw_ref(u, v, w, e, SCAL)[0]
+    for cfg in _stencil_configs(name):
+        if name == "advec_u":
+            got = advec_u.launch(cfg, *args[:3], scal)
+        else:
+            got = diff_uvw.launch_single(cfg, args[0], args[3], scal)
+        _assert_close(got, want, dtype)
