@@ -43,7 +43,26 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bfloat16 too; flash attention at the slice shape in the default
    (wgmma), tuned and one mma config; matmul (512, 512, 1024) float32 and
    flash attention at the slice shape in every config of their spaces
-   (naming each flash config's body).
+   (naming each flash config's body); every bound comes from the kernel's
+   workload hook and ``profile_from_workload`` on the ``gpu-h100`` spec;
+7. telemetry, profiles, export. Phases 3-5 run with ``repro_torch.obs``
+   enabled and one profiler sampling every launch (the ambient
+   ``KERNEL_LAUNCHER_PROF`` profiler, attached to ``ops``' kernels too).
+   Between phases 4 and 5, after the main path's launch counts are read,
+   a WisdomKernel is forced to launch diff_uvw at 512^3 in both fused
+   variants (the path's selection runs one of its two CUDA kernels), so
+   both go through the launch path; their profiles form the "forced"
+   group. Phase 7 checks that ``launch.count`` of each kernel equals the
+   WisdomKernel stats entries the runs appended and the profiles taken;
+   that the saved trace passes ``validate_trace``, holds one ``launch``
+   span for each profiled launch, covering every CUDA kernel, and one
+   ``serve.arena`` span per generation of (e); prints one profile line per
+   kernel and run (main, forced, lm) and holds every roofline fraction to
+   (0, 1.05]; and exports headers from the phase 3-4 wisdom (``export_header``)
+   and launches ``StaticKernel`` from them at 512^3 and (512, 512, 1024)
+   against a WisdomKernel forced to the same config (bit for bit for the
+   stencils, the tuner's tolerance for matmul), with both times and the
+   WisdomKernel's own selection beside the header's config.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -55,11 +74,13 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter, defaultdict
 from dataclasses import replace
 from pathlib import Path
 
@@ -71,24 +92,35 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import (current_device_kind, get_kernel,  # noqa: E402
-                              list_captures)
+from repro_torch.core import (WisdomKernel, current_device_kind,  # noqa: E402
+                              get_kernel, list_captures)
 from repro_torch.core.capture import CAPTURE_DIR_ENV, CAPTURE_ENV  # noqa: E402
+from repro_torch.core.device import get_device  # noqa: E402
+from repro_torch.core.export import (StaticKernel, export_header,  # noqa: E402
+                                     load_header)
+from repro_torch.core.scenario import format_key  # noqa: E402
 from repro_torch.core.wisdom import WISDOM_DIR_ENV  # noqa: E402
 from repro_torch.examples import quickstart, tune_microhh  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import load_trace, validate_trace  # noqa: E402
+from repro_torch.obs import runtime as obs_runtime  # noqa: E402
+from repro_torch.prof import (PROF_ENV, process_profiler,  # noqa: E402
+                              profile_from_workload, reset_process_profiler)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.tuner import tune_capture  # noqa: E402
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
-# NVIDIA H100 SXM data sheet (dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-BYTES = {"float32": 4, "bfloat16": 2}
+#: The spec every bound is computed against: NVIDIA's H100 SXM data sheet
+#: (dense, at the 700 W limit), in ``core/device.py``.
+H100 = get_device("gpu-h100")
+#: The largest roofline fraction a profile may show: above 1 the kernel
+#: would beat its bound, so the workload's counts would be wrong; the 5 %
+#: covers the CUDA events' resolution.
+MAX_ROOFLINE_FRACTION = 1.05
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 SMALL_STENCIL = [(8, 8, 128), (16, 32, 128), (32, 16, 256), (32, 32, 128)]
@@ -335,34 +367,28 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, op_dtype: str) -> tuple[float, str]:
-    """Least time in ms: bytes over HBM bandwidth vs operations over the
-    peak for their type, whichever is larger, and which one it was."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[op_dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def builder_of(name: str):
+    """The builder that launches CUDA kernel (or builder) ``name``."""
+    return get_kernel("diff_uvw" if name.startswith("diff_uvw") else name)
 
 
-def work(name: str, shape, dtype: str) -> tuple[float, float]:
-    """(bytes, flops) the function must move and do: each input read once,
-    each output written once. diff_uvw_single is three launches, each
-    reading one field and evisc and writing one tendency. Causal attention
-    needs the S(S+1)/2 (query, key) pairs at or below the diagonal, two
-    products of D multiply-adds each."""
-    b = BYTES[dtype]
-    if name == "flash_attention_causal":
-        bh, bhkv, s, d = shape
-        return (2 * bh + 2 * bhkv) * s * d * b, 4.0 * bh * d * s * (s + 1) / 2
-    if name == "matmul":
-        m, n, k = shape
-        return (m * k + k * n + m * n) * b, 2.0 * m * n * k
-    pts = shape[0] * shape[1] * shape[2]
-    fields_moved = {"advec_u": 4, "diff_uvw_fused": 7,
-                    "diff_uvw_single": 9}[name]
-    flops = (ref.ADVEC_FLOPS_PER_POINT if name == "advec_u"
-             else 3 * ref.DIFF_FLOPS_PER_POINT_PER_FIELD) * pts
-    return fields_moved * pts * b + 16, float(flops)
+def cuda_kernel(builder: str, cfg: dict) -> str:
+    """The CUDA kernel (a key of TPU_KERNELS) a launch of ``builder`` in
+    ``cfg`` runs, as the builder's kernel module says (``kernel_of``)."""
+    return sys.modules[get_kernel(builder).source].kernel_of(cfg).name
+
+
+def bound(name: str, shape, dtype: str, cfg: dict) -> tuple[float, str]:
+    """Least time in ms for CUDA kernel ``name`` in ``cfg`` on ``shape``,
+    and whether bytes or operations set it: the builder's workload hook
+    (each input read once, each output written once; the unfused diff_uvw
+    a call of three launches) joined with the H100's peaks by the
+    program's own ``profile_from_workload``."""
+    w = builder_of(name).make_workload(cfg, tuple(shape), dtype)
+    check(w.valid, f"{name} {shape} {dtype} {cfg}: invalid workload")
+    p = profile_from_workload(w, H100, dtype, 1.0)
+    return (max(p.compute_us, p.memory_us) / 1e3,
+            "operations" if p.bottleneck == "compute" else "bytes")
 
 
 def library_call(a, b):
@@ -395,11 +421,8 @@ def timing_row(name: str, shape, dtype: str, configs: dict, args) -> dict:
                                     args)[1], reps=3)
     lib = LIBRARY.get(name)
     row["library_ms"] = time_ms(lambda: lib(*args)) if lib else None
-    nbytes, flops = work(name, shape, dtype)
-    # the stencils compute in float32 whatever dtype they store
     row["bound_ms"], row["bound_by"] = bound(
-        nbytes, flops, "float32" if name in ("advec_u", "diff_uvw_fused",
-                                             "diff_uvw_single") else dtype)
+        name, shape, dtype, next(iter(configs.values())))
     print("time " + json.dumps(row), flush=True)
     return row
 
@@ -609,14 +632,18 @@ def phase_kernels() -> dict:
     return headline
 
 
-def phase_main_path() -> tuple[dict, dict, dict]:
+def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
+    """Phases 3-4, their wisdom kept under ``wisdom``. Returns the two
+    examples' results and the CUDA kernels' launches."""
     _build.reset_launch_counts()
     qs = quickstart.main(["--device", "cuda", "--max-evals", "20",
-                          "--budget-seconds", "120"])
+                          "--budget-seconds", "120",
+                          "--wisdom-dir", str(wisdom / "quickstart")])
     check(qs["tiers"] == ("default", "exact"),
           f"quickstart tiers {qs['tiers']}, want ('default', 'exact')")
     mh = tune_microhh.main(["--device", "cuda", "--max-evals", "8",
-                            "--budget-seconds", "120"])
+                            "--budget-seconds", "120",
+                            "--wisdom-dir", str(wisdom / "microhh")])
     for sc, tier, cfg in mh["selected"]:
         check(tier == "exact", f"{sc.key}: selected tier {tier}")
     for name, dtype, st, _ in mh["launched"]:
@@ -632,6 +659,180 @@ def phase_main_path() -> tuple[dict, dict, dict]:
     check(bodies["advec_u"].get("tile", 0) > 0,
           "advec_u did not launch its tile body on the main path")
     return qs, mh, counts
+
+
+def both_diff_kernels(mh: dict, wisdom: Path) -> int:
+    """diff_uvw at 512^3 float32 through a WisdomKernel forced into both
+    fused variants: the config the fallback tier selected and the same
+    block in the other variant (fused runs the ldg body), each checked
+    against the plain version. The main path's selection launches one of
+    diff_uvw's two CUDA kernels through the launch path (the tuner
+    launches both, but not through a WisdomKernel); this gives the other
+    a launch span and a profile too. Run after the main path's counts are
+    read, so they are not counted there. Returns the launches."""
+    sel = next(st.config for name, dtype, st, _ in mh["launched"]
+               if (name, dtype) == ("diff_uvw", "float32"))
+    k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=wisdom,
+                     device_kind=current_device_kind())
+    args = tune_microhh.launch_args("diff_uvw", (512,) * 3, "float32",
+                                    torch.device("cuda"))
+    want = ref.diff_uvw_ref(*args)
+    for cfg in (as_ldg(sel) | {"fuse_outputs": True},
+                sel | {"fuse_outputs": False}):
+        check(k.builder.space.is_valid(cfg), f"diff_uvw: {cfg} invalid")
+        out = verify_outcome(k(*args, config=cfg), want, "float32")
+        check(out.ok, f"diff_uvw 512^3 {cfg}: {out.error}")
+        print(f"forced: diff_uvw 512^3 float32 as "
+              f"{cuda_kernel('diff_uvw', cfg)} max_abs_err={out.max_err:.3e}"
+              f" ok config={json.dumps(cfg)}", flush=True)
+    del args, want
+    return len(k.stats)
+
+
+# -------------------------------------------------------------- telemetry
+
+def instrument():
+    """Turn on ``repro_torch.obs`` and one profiler that samples every
+    launch: the ambient one (``KERNEL_LAUNCHER_PROF``), which every
+    WisdomKernel and ServeEngine built from here on picks up, attached to
+    ``ops``' kernels (built at import) too. Returns (registry, tracer,
+    profiler)."""
+    os.environ[PROF_ENV] = "1"
+    reset_process_profiler()
+    pr = process_profiler()
+    pr.sample_every = 1
+    for k in ops._ALL_KERNELS:
+        k.attach_profiler(pr)
+    obs_runtime.disable()
+    reg, tr = obs_runtime.enable()
+    return reg, tr, pr
+
+
+def uninstrument() -> None:
+    obs_runtime.disable()
+    os.environ.pop(PROF_ENV, None)
+    reset_process_profiler()
+    for k in ops._ALL_KERNELS:
+        k.attach_profiler(None)
+
+
+def phase_telemetry(reg, tr, pr, stats: Counter, paths: list,
+                    generations: int) -> dict:
+    """Phase 7's reading of phases 3-5: counts, trace, profiles.
+    ``paths`` names the runs in order, each with the number of profiles
+    taken when it ended: ("main", n), ("forced", n), ("lm", n)."""
+    snap = reg.snapshot()
+    for name, n in sorted(stats.items()):
+        got = snap["counters"].get(f"launch.count{{kernel={name}}}", 0)
+        n_prof = sum(p.kernel == name for p in pr.profiles)
+        check(got == n == n_prof, f"launch.count{{kernel={name}}} = {got},"
+              f" {n} stats entries, {n_prof} profiles")
+        print(f"telemetry launch.count{{kernel={name}}} = {got:g}: equals "
+              f"the {n} WisdomKernel stats entries and {n_prof} profiles",
+              flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="kl-trace-") as tmp:
+        doc = load_trace(tr.save(Path(tmp) / "trace.json"))
+    check(validate_trace(doc) == [], "trace failed validate_trace")
+    spans = defaultdict(list)
+    for e in doc["traceEvents"]:
+        if e["name"] == "launch":
+            spans[e["args"]["kernel"]].append(e)
+    # One span and one profile a launch: the same (tier, scenario) pairs
+    # for each builder, so the CUDA kernels the profiles' configs ran are
+    # those the spans record.
+    seen = set()
+    for builder, evs in spans.items():
+        profs = [p for p in pr.profiles if p.kernel == builder]
+        got = Counter((e["args"]["tier"], e["args"]["scenario"])
+                      for e in evs)
+        want = Counter((p.tier, format_key(p.scenario_key())) for p in profs)
+        check(got == want, f"{builder}: launch spans {dict(got)}, "
+              f"profiles {dict(want)}")
+        seen.update(cuda_kernel(builder, p.config) for p in profs)
+    check(seen >= set(TPU_KERNELS),
+          f"no launch span for {sorted(set(TPU_KERNELS) - seen)}")
+    arenas = sum(e["name"] == "serve.arena" for e in doc["traceEvents"])
+    check(arenas == generations,
+          f"{arenas} serve.arena spans, {generations} generations")
+    print(f"telemetry trace: valid Chrome trace of "
+          f"{len(doc['traceEvents'])} events, "
+          f"{sum(map(len, spans.values()))} launch spans covering "
+          f"{sorted(seen)}, {arenas} serve.arena spans for {generations} "
+          f"generations", flush=True)
+
+    groups = defaultdict(list)
+    for i, p in enumerate(pr.profiles):
+        kernel = (p.kernel if p.kernel == "serve.decode"
+                  else cuda_kernel(p.kernel, p.config))
+        path = next(name for name, end in paths if i < end)
+        groups[(path, kernel)].append(p)
+    # The main path's selection runs one diff_uvw kernel; the forced
+    # launches run both.
+    wants = ([("main", k) for k in ("advec_u", "matmul")]
+             + [("forced", k) for k in STENCILS[1:]]
+             + [("lm", k) for k in LM_KERNELS])
+    for want in wants:
+        check(want in groups, f"no profile of {want[1]} on the "
+              f"{want[0]} path")
+    check(any(("main", k) in groups for k in STENCILS[1:]),
+          "no profile of a diff_uvw kernel on the main path")
+    for (path, kernel), ps in sorted(groups.items()):
+        fracs = [p.roofline_fraction for p in ps]
+        check(all(0 < f <= MAX_ROOFLINE_FRACTION for f in fracs),
+              f"{kernel} on the {path} path: roofline fractions {fracs}")
+        p = ps[-1]
+        print("profile " + json.dumps({
+            "path": path, "kernel": kernel, "builder": p.kernel,
+            "problem": list(p.problem_size), "dtype": p.dtype,
+            "config": p.config, "tier": p.tier,
+            "latency_us": p.latency_us, "compute_us": p.compute_us,
+            "memory_us": p.memory_us, "bottleneck": p.bottleneck,
+            "roofline_fraction": p.roofline_fraction, "profiles": len(ps),
+            "fraction_range": [min(fracs), max(fracs)]}), flush=True)
+    return snap
+
+
+def phase_export(kind: str, wisdom: Path, out: Path) -> None:
+    """The paper's compile-time baseline: headers exported from the phase
+    3-4 wisdom, each launched by StaticKernel against a WisdomKernel
+    forced to the header's config, with both times, and what the
+    WisdomKernel itself selects at that size."""
+    cuda = torch.device("cuda")
+    for name, wdir, shape in (
+            ("advec_u", wisdom / "microhh", (512,) * 3),
+            ("diff_uvw", wisdom / "microhh", (512,) * 3),
+            ("matmul", wisdom / "quickstart", QS_MATMUL)):
+        b = get_kernel(name)
+        hdr = export_header(name, kind, wisdom_dir=wdir, out_dir=out)
+        cfg = load_header(hdr)["config"]
+        static = StaticKernel(b, hdr)
+        wk = WisdomKernel(b, wisdom_dir=wdir, device_kind=kind)
+        args = (matrices(*shape, "float32") if name == "matmul" else
+                tune_microhh.launch_args(name, shape, "float32", cuda))
+        got, want = static(*args), wk(*args, config=cfg)
+        if name == "matmul":
+            out_ = verify_outcome(got, want, "float32")
+            check(out_.ok, f"StaticKernel {name}: {out_.error}")
+            agree = f"max_abs_err={out_.max_err:.3e} {tolerance('float32')}"
+        else:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"StaticKernel {name} differs from the forced "
+                  f"WisdomKernel")
+            agree = "bit for bit"
+        static_ms = time_ms(lambda: static(*args))
+        wk_ms = time_ms(lambda: wk(*args, config=cfg))
+        sel, tier = wk.select_config(tuple(shape), "float32")
+        print(f"export {name} {'x'.join(map(str, shape))} float32: "
+              f"StaticKernel vs WisdomKernel forced to the header's config "
+              f"agree {agree}; StaticKernel {static_ms:.4f} ms, WisdomKernel"
+              f" {wk_ms:.4f} ms; header config {json.dumps(cfg)}; the "
+              f"WisdomKernel selects tier {tier} config {json.dumps(sel)}",
+              flush=True)
+        del args, got, want
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ LM slice
@@ -1012,19 +1213,39 @@ def main() -> int:
     headline = phase_kernels()
     print(f"[{time.perf_counter() - t0:.0f}s] kernels agree with their "
           f"plain versions", flush=True)
-    qs, mh, counts = phase_main_path()
-    print(f"[{time.perf_counter() - t0:.0f}s] main path done", flush=True)
-    _build.reset_launch_counts()
-    lm = phase_lm()
-    lm_counts = {k: _build.CUDA_KERNELS[k].launches for k in LM_KERNELS}
-    print(f"lm-path launches: {json.dumps(lm_counts)}; flash_attention by "
-          f"body: {json.dumps(flash_attention.BODY_LAUNCHES)}", flush=True)
-    for name, n in lm_counts.items():
-        check(n > 0, f"{name} was not launched on the LM path")
-    counts |= lm_counts
-    print(f"[{time.perf_counter() - t0:.0f}s] LM path done", flush=True)
-    rows = phase_times(qs, mh)
-    rows[("flash_attention", 2048, "bfloat16")] = phase_lm_times(lm)
+    with tempfile.TemporaryDirectory(prefix="kl-smoke-") as tmp:
+        wisdom = Path(tmp) / "wisdom"
+        reg, tr, pr = instrument()
+        qs, mh, counts = phase_main_path(wisdom)
+        paths = [("main", len(pr.profiles))]
+        stats = Counter({"matmul": len(qs["stats"])})
+        stats.update(name for name, *_ in mh["launched"])
+        stats["diff_uvw"] += both_diff_kernels(mh, wisdom / "microhh")
+        paths.append(("forced", len(pr.profiles)))
+        print(f"[{time.perf_counter() - t0:.0f}s] main path done", flush=True)
+        _build.reset_launch_counts()
+        ops_stats0 = {k: len(k.stats) for k in ops._ALL_KERNELS}
+        lm = phase_lm()
+        stats.update({k.builder.name: len(k.stats) - n
+                      for k, n in ops_stats0.items() if len(k.stats) > n})
+        paths.append(("lm", len(pr.profiles)))
+        uninstrument()
+        lm_counts = {k: _build.CUDA_KERNELS[k].launches for k in LM_KERNELS}
+        print(f"lm-path launches: {json.dumps(lm_counts)}; flash_attention "
+              f"by body: {json.dumps(flash_attention.BODY_LAUNCHES)}",
+              flush=True)
+        for name, n in lm_counts.items():
+            check(n > 0, f"{name} was not launched on the LM path")
+        counts |= lm_counts
+        print(f"[{time.perf_counter() - t0:.0f}s] LM path done", flush=True)
+        rows = phase_times(qs, mh)
+        rows[("flash_attention", 2048, "bfloat16")] = phase_lm_times(lm)
+        t7 = time.perf_counter()
+        phase_telemetry(reg, tr, pr, stats, paths, lm["serve"]["cohorts"])
+        phase_export(current_device_kind(), wisdom, Path(tmp) / "generated")
+        print(f"[{time.perf_counter() - t0:.0f}s] phase 7 (telemetry, "
+              f"profiles, export) took {time.perf_counter() - t7:.1f}s",
+              flush=True)
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

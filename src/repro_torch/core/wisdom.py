@@ -245,6 +245,17 @@ def _distance(a: Sequence[int], b: Sequence[int]) -> float:
         math.log2(max(x, 1) / max(y, 1)) ** 2 for x, y in zip(a, b)))
 
 
+def _metrics():
+    """The process metrics registry, or None (obs disabled).
+
+    Imported lazily: ``repro_torch.obs`` imports
+    ``repro_torch.core.scenario`` for its tier vocabulary, so a
+    module-level import here could deadlock package initialization
+    depending on which package is imported first."""
+    from repro_torch.obs import runtime as obs_runtime
+    return obs_runtime.metrics()
+
+
 class WisdomIndex:
     """Hash index over one kernel's records — the §4.5 select hot path.
 
@@ -484,6 +495,21 @@ class Wisdom:
 
     # -- selection (paper §4.5) ----------------------------------------------
 
+    def select(self, device_kind: str, problem_size: Sequence[int],
+               dtype: str, default_config: dict,
+               min_transfer_confidence: float | None = None
+               ) -> tuple[dict, str]:
+        """Pick a config for a scenario. Returns (config, match_tier).
+        Thin wrapper over :meth:`select_record` for callers that only
+        need the config dict (``default_config`` where no record serves);
+        callers that want the matched record itself (its score,
+        provenance, transfer confidence) use ``select_record``."""
+        rec, tier = self.select_record(device_kind, problem_size, dtype,
+                                       min_transfer_confidence)
+        if rec is None:
+            return dict(default_config), tier
+        return dict(rec.config), tier
+
     def select_record(self, device_kind: str, problem_size: Sequence[int],
                       dtype: str,
                       min_transfer_confidence: float | None = None
@@ -542,11 +568,19 @@ class Wisdom:
             (T_ANY, idx.measured.values()),
         )
 
+        result: tuple[WisdomRecord | None, str] = (None, T_DEFAULT)
         for tier_name, cands in tiers:
             rec = best(cands)
             if rec is not None:
-                return rec, tier_name
-        return None, T_DEFAULT
+                result = (rec, tier_name)
+                break
+        m = _metrics()
+        if m is not None:
+            outcome = ("hit" if result[1] == T_EXACT
+                       else "default" if result[0] is None else "fallback")
+            m.counter("select.index_hit", kernel=self.kernel_name,
+                      outcome=outcome).inc()
+        return result
 
     def __len__(self) -> int:
         return len(self.records)

@@ -1,10 +1,14 @@
 """Workload descriptors — what a kernel configuration *does* to the hardware.
 
 A copy of ``repro.core.workload``. A KernelBuilder may provide
-``workload(config, problem, dtype)`` returning a :class:`Workload`; the
-analytical cost model that turns (Workload, DeviceSpec) into a simulated
-kernel time is not ported yet (see ROADMAP.md), so the port's kernels time
-themselves on the card instead.
+``workload(config, problem, dtype)`` returning a :class:`Workload`. Each of
+the port's kernels registers one for the H100 (flops, compulsory HBM
+traffic, a block's shared memory as ``vmem_bytes``, blocks launched as
+``grid``), which ``repro_torch.prof`` joins with a launch's measured time;
+the TPU-shaped fields (``mxu_tile``, lanes, ``reuse``) stay at their
+defaults. The analytical cost model that turns (Workload, DeviceSpec) into
+a simulated kernel time is not ported yet (see ROADMAP.md), so the port's
+kernels time themselves on the card instead.
 """
 
 from __future__ import annotations

@@ -50,6 +50,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--max-evals", type=int, default=20)
     ap.add_argument("--budget-seconds", type=float, default=120.0)
+    ap.add_argument("--wisdom-dir", default=None,
+                    help="keep the wisdom here (default: a temporary dir)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     kind = current_device_kind(device)
@@ -61,7 +63,7 @@ def main(argv=None) -> dict:
         rng.standard_normal((args.k, args.n)).astype(np.float32)).to(device)
 
     with tempfile.TemporaryDirectory(prefix="kl-quickstart-") as tmp:
-        wisdom_dir = f"{tmp}/wisdom"
+        wisdom_dir = args.wisdom_dir or f"{tmp}/wisdom"
         kernel = WisdomKernel(get_kernel("matmul"), wisdom_dir=wisdom_dir,
                               device_kind=kind)
         # 1+2: launch (runs + captures)
@@ -93,7 +95,8 @@ def main(argv=None) -> dict:
           f"tuned={res.best_score_us:.1f}us "
           f"({default_us / res.best_score_us:.2f}x)")
     return {"a": a, "b": b, "c": c, "c2": c2, "tiers": (st1.tier, st2.tier),
-            "result": res, "default_us": default_us, "max_err": check.max_err}
+            "stats": kernel.stats, "result": res, "default_us": default_us,
+            "max_err": check.max_err}
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.builder import KernelBuilder
 from repro_torch.core.device import GPU_H100
+from repro_torch.core.workload import Workload
 
 #: Unravel permutation -> (UNRAVEL_A, UNRAVEL_B, UNRAVEL_C): the tile axes
 #: (0 = x, 1 = y, 2 = z) the linear block index walks, fastest first.
@@ -194,6 +195,41 @@ def plan(kernel: str, config, shape, dtype: str) -> StencilPlan:
                    f"need {per_sm} bytes of an SM's {SMEM_PER_SM}")
     return StencilPlan(kernel, body, dtype, tuple(shape), block, tile, grid,
                        staged, ring, smem, refusal)
+
+
+# -------------------------------------------------------------- workload
+
+#: Bytes of the (1, 4) float32 ``scal`` block every stencil reads.
+SCAL_BYTES = 16
+
+
+def stencil_workload(kernel: str, config, problem, dtype: str,
+                     flops_per_point: int, fields: int,
+                     launches: int = 1) -> Workload:
+    """The hardware demand of one call of ``launches`` launches of
+    ``kernel`` (its :func:`plan`) in ``config``: ``flops_per_point`` over
+    the grid, and the compulsory traffic — ``fields`` grid fields each
+    read or written once, plus ``scal``.
+
+    The reference's stencil workloads add halo and re-fetch factors
+    (``reuse``, per-block slabs) because a TPU reuses only what sits in
+    its VMEM. On the H100 the neighbour blocks' halos and the tiles' re-reads
+    hit the 50 MB L2, so the floor the card can reach is the compulsory
+    traffic; ``vmem_bytes`` is one block's shared memory and ``grid`` the
+    blocks launched. Invalid where the launcher refuses the config or the
+    grid (:func:`plan`'s refusal, :func:`check_fields`' range and dtypes).
+    """
+    if dtype not in ("float32", "bfloat16"):
+        return Workload(0, 0, 0, 0, valid=False)
+    p = plan(kernel, config, problem, dtype)
+    pts = p.shape[0] * p.shape[1] * p.shape[2]
+    elem = 4 if dtype == "float32" else 2
+    return Workload(
+        flops=float(flops_per_point * pts),
+        hbm_bytes=float(fields * pts * elem + SCAL_BYTES),
+        vmem_bytes=p.smem_bytes,
+        grid=launches * p.grid[0] * p.grid[1] * p.grid[2],
+        valid=not p.refusal and min(p.shape) >= 3 and pts < 2**31)
 
 
 # ------------------------------------------------------------------ checks

@@ -23,13 +23,18 @@ from repro_torch.core.builder import dtype_name, probe_array
 from . import ref as _ref
 from ._build import CudaKernel
 from ._stencil_common import (StencilPlan, add_stencil_space, check_fields,
-                              require_cuda, stencil_defines)
+                              require_cuda, stencil_defines, stencil_workload)
 from ._stencil_common import plan as _plan
 
 _P = ctypes.c_void_p
 kernel = CudaKernel("advec_u", "advec_u.cu", "advec_u_launch",
                     (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, _P))
+
+
+def kernel_of(config) -> CudaKernel:
+    """The CUDA kernel a launch in ``config`` runs."""
+    return kernel
 
 builder = KernelBuilder("advec_u", source="repro_torch.kernels.advec_u")
 add_stencil_space(builder, "advec_u", body="tile", block=(64, 4), strip=128,
@@ -79,6 +84,14 @@ def _build(config, problem, meta):
 
 
 builder.reference(_ref.advec_u_ref)
+
+
+@builder.workload
+def _workload(config, problem, dtype):
+    """78 flops a point (the reference's count); u, v, w read once and ut
+    written once (``stencil_workload`` says why no halo factor)."""
+    return stencil_workload("advec_u", config, problem, dtype,
+                            _ref.ADVEC_FLOPS_PER_POINT, fields=4)
 
 
 @builder.probe

@@ -25,7 +25,7 @@ from repro_torch.core.builder import dtype_name, probe_array
 from . import ref as _ref
 from ._build import CudaKernel
 from ._stencil_common import (StencilPlan, add_stencil_space, check_fields,
-                              require_cuda, stencil_defines)
+                              require_cuda, stencil_defines, stencil_workload)
 from ._stencil_common import plan as _plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,12 +40,17 @@ builder.tune("fuse_outputs", (True, False), default=True)
 builder.restriction("body == 'ldg' or not fuse_outputs")
 
 
+def kernel_of(config) -> CudaKernel:
+    """The CUDA kernel a launch in ``config`` runs: the fused one once, or
+    the single-field one three times."""
+    return fused_kernel if config["fuse_outputs"] else single_kernel
+
+
 def plan(config, shape, dtype: str) -> StencilPlan:
     """The launch plan of one of ``config``'s launches (the fused kernel's,
     or one of the single-field kernel's three) on a (nz, ny, nx) grid in
     ``dtype``, in pure Python."""
-    kernel = "diff_uvw_fused" if config["fuse_outputs"] else "diff_uvw_single"
-    return _plan(kernel, config, shape, dtype)
+    return _plan(kernel_of(config).name, config, shape, dtype)
 
 
 @builder.problem_size
@@ -107,6 +112,23 @@ def _build(config, problem, meta):
 
 
 builder.reference(_ref.diff_uvw_ref)
+
+
+@builder.workload
+def _workload(config, problem, dtype):
+    """27 flops a point a field (the reference's count) for three fields.
+    Fused: u, v, w and evisc read once, three tendencies written once.
+    Unfused, one call is three launches and nine fields: each reads its
+    field and evisc and writes its tendency (``stencil_workload`` says why
+    no halo factor)."""
+    flops = 3 * _ref.DIFF_FLOPS_PER_POINT_PER_FIELD
+    if config["fuse_outputs"]:
+        w = stencil_workload("diff_uvw_fused", config, problem, dtype,
+                             flops, fields=7)
+        # launch_fused refuses a tile config
+        return w if config["body"] == "ldg" else w.scaled(valid=False)
+    return stencil_workload("diff_uvw_single", config, problem, dtype,
+                            flops, fields=9, launches=3)
 
 
 @builder.probe

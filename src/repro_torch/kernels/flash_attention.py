@@ -49,7 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core import KernelBuilder, register
+from repro_torch.core import KernelBuilder, Workload, register
 from repro_torch.core.builder import dtype_name, probe_array
 from repro_torch.core.device import GPU_H100
 
@@ -60,6 +60,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 kernel = CudaKernel("flash_attention", "flash_attention.cu",
                     "flash_attention_launch",
                     (_P, _P, _P, _P, _I, _I, _I, _I, _P))
+
+
+def kernel_of(config) -> CudaKernel:
+    """The CUDA kernel a launch in ``config`` runs."""
+    return kernel
 
 #: Head dims the kernel takes, and the card's tests check: 128 (the LM
 #: slice's) and 256. ``ops.flashable`` routes any multiple of 128, so a
@@ -240,6 +245,33 @@ def _make_builder(causal: bool) -> KernelBuilder:
         return run
 
     b.reference(_ref.flash_attention_ref_factory(causal))
+
+    @b.workload
+    def _workload(config, problem, dtype):
+        """Two products of D multiply-adds for each (query, key) pair the
+        output needs: S^2 pairs a head, S(S+1)/2 causal (the reference
+        counts the diagonal tiles whole, the same count at one key a
+        tile). The compulsory
+        traffic reads q, k, v once and writes o once; the reference streams
+        k/v once per query block, as a TPU must from its VMEM, where on the
+        H100 the other query blocks' k/v reads hit the 50 MB L2.
+        ``vmem_bytes`` is a block's shared memory in the body
+        :func:`choose_body` picks, ``grid`` the blocks launched. Invalid
+        where :func:`launch` would refuse the problem or the card the
+        config."""
+        bh, bhkv, s, d = problem
+        body = choose_body(dtype, d, config)
+        byt = 4 if dtype == "float32" else 2
+        pairs = s * (s + 1) / 2 if causal else float(s * s)
+        valid = (dtype in ("float32", "bfloat16") and d in HEAD_DIMS
+                 and bhkv >= 1 and bh % bhkv == 0 and s >= 1
+                 and bh <= _MAX_GRID_Y and bh * s * d < 2**31
+                 and not card_refusal(config, body, d, dtype))
+        return Workload(
+            flops=4.0 * bh * d * pairs,
+            hbm_bytes=float((2 * bh + 2 * bhkv) * s * d * byt),
+            vmem_bytes=smem_bytes(config, body, d, dtype),
+            grid=-(-s // config["block_q"]) * bh, valid=valid)
 
     @b.probe
     def _probe(problem, dtype):

@@ -40,7 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core import KernelBuilder, register
+from repro_torch.core import KernelBuilder, Workload, register
 from repro_torch.core.builder import dtype_name, probe_array
 from repro_torch.core.device import GPU_H100
 
@@ -50,6 +50,11 @@ from ._build import CudaKernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 kernel = CudaKernel("matmul", "matmul.cu", "matmul_launch",
                     (_P, _P, _P, _P, _I, _I, _I, _P))
+
+
+def kernel_of(config) -> CudaKernel:
+    """The CUDA kernel a launch in ``config`` runs."""
+    return kernel
 
 #: k a wgmma-body tile covers: 64 bf16, one 128-byte swizzle row.
 WGMMA_TILE_K = 64
@@ -197,12 +202,18 @@ def _check(config, a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("matmul operands must be contiguous")
     m, k = a.shape
     n = b.shape[1]
-    grid_y = (-(-n // config["block_n"]) if config["grid_order"] == "mnk"
-              else -(-m // config["block_m"]))
-    if max(grid_y, config["split_k"]) > _MAX_GRID_YZ or \
-            max(m, n, k) >= 2**31 or min(m, n, k) < 1:
+    if out_of_range(config, m, n, k):
         raise ValueError(f"matmul problem {(m, n, k)} outside the kernel's "
                          f"range for {config}")
+
+
+def out_of_range(config, m: int, n: int, k: int) -> bool:
+    """Whether CUDA's grid limits or the kernel's 32-bit indices keep it
+    from running ``config`` on (m, n, k)."""
+    grid_y = (-(-n // config["block_n"]) if config["grid_order"] == "mnk"
+              else -(-m // config["block_m"]))
+    return (max(grid_y, config["split_k"]) > _MAX_GRID_YZ
+            or max(m, n, k) >= 2**31 or min(m, n, k) < 1)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -262,6 +273,27 @@ def _build(config, problem, meta):
 
 
 builder.reference(_ref.matmul_ref)
+
+
+@builder.workload
+def _workload(config, problem, dtype):
+    """2mnk flops (the reference's count) and the compulsory traffic: A and
+    B read once, C written once. The reference re-reads A per column block
+    and B per row block, as a TPU does from its VMEM; on the H100 those
+    re-reads hit the 50 MB L2, and split-K's f32 partials stay there too at
+    the sizes it helps. ``vmem_bytes`` is a block's shared memory in the
+    body the shape selects (16-byte aligned operands assumed, as
+    ``torch.empty`` gives), ``grid`` the main kernel's blocks. Invalid
+    where the launcher would refuse the config or the problem."""
+    m, n, k = problem
+    p = plan(config, m, n, k, dtype)
+    b = 4 if dtype == "float32" else 2
+    valid = (dtype in ("float32", "bfloat16") and not p.refusal
+             and not out_of_range(config, m, n, k))
+    return Workload(
+        flops=2.0 * m * n * k, hbm_bytes=float((m * k + k * n + m * n) * b),
+        vmem_bytes=p.smem_bytes, grid=p.grid[0] * p.grid[1] * p.grid[2],
+        valid=valid)
 
 
 @builder.probe

@@ -19,17 +19,27 @@ Two scheduling modes over the same static (n_slots, max_seq) KV arena:
 
 Greedy (argmax) or temperature sampling, on the host with numpy, as in
 the reference. ``jax.jit(model.decode_step)`` becomes an eager call of
-``model.decode_step``. The reference's optional collaborators — ``obs``
-metrics and traces, online autotuners, fleet wisdom sync and the
-decode-step profiler — are not ported yet (ROADMAP.md queue 1 item 10).
+``model.decode_step``. With ``repro_torch.obs`` enabled the engine reports
+decode steps, batch occupancy, cohort sizes, queue depth and completed
+requests, and traces one ``serve.cohort`` or ``serve.arena`` span per
+cohort or arena generation; a decode-step profiler
+(``repro_torch.prof.StepProfiler``, or the ambient one under
+``KERNEL_LAUNCHER_PROF``) times sampled steps up to the copy of their
+logits to the host, which every step makes anyway. The reference's other
+collaborators — online autotuners and fleet wisdom sync — are not ported
+yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.obs import runtime as obs
+from repro_torch.obs.metrics import COUNT_BUCKETS, UNIT_BUCKETS
 
 from .batching import ContinuousBatcher
 
@@ -107,7 +117,8 @@ class ServeEngine:
     plus run statistics. ``mode`` is ``"auto"`` (token-level when the
     model supports per-slot attention windows, else cohort), ``"token"``
     or ``"cohort"``. The model's ``device`` holds the cache and runs the
-    decode steps.
+    decode steps. ``profiler`` is an optional
+    :class:`repro_torch.prof.StepProfiler`.
 
     Example::
 
@@ -119,7 +130,7 @@ class ServeEngine:
 
     def __init__(self, model, params, n_slots: int = 4,
                  max_seq: int = 512, temperature: float = 0.0,
-                 rng_seed: int = 0, mode: str = "auto"):
+                 rng_seed: int = 0, profiler=None, mode: str = "auto"):
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -141,6 +152,20 @@ class ServeEngine:
         self.steps_run = 0
         self._useful_slot_steps = 0
         self._inflight_admissions = 0
+        # Optional decode-step profiler: every Nth step is timed and
+        # recorded as a "serve.decode" roofline profile (params streamed
+        # from device memory per step, so small-batch decode is
+        # memory-bound; the profile says by how much). Unsampled steps
+        # pay one None check.
+        self.profiler = profiler
+        if profiler is None:
+            from repro_torch.prof.profiler import (StepProfiler,
+                                                   process_profiler)
+            ambient = process_profiler()
+            if ambient is not None:
+                self.profiler = StepProfiler(ambient)
+        if self.profiler is not None:
+            self.profiler.bind(params, n_slots, max_seq)
 
     def submit(self, req: Request) -> bool:
         ok = self.batcher.submit(req.request_id, len(req.prompt),
@@ -162,11 +187,18 @@ class ServeEngine:
 
     def _decode_once(self, cache, next_tok: np.ndarray):
         """One eager decode step; returns host logits (n_slots, V) and the
-        cache."""
+        cache. A profiler-sampled step is timed on the host clock up to
+        its logits' copy to the host, which waits for the step's work."""
+        prof = self.profiler
+        sampled = prof is not None and prof.due(self.steps_run)
+        t0 = time.perf_counter()
         tokens = torch.from_numpy(next_tok).to(self.device)
         logits, cache = self._decode(self.params, cache, tokens)
+        host = logits[:, 0].to(torch.float32).cpu().numpy()
+        if sampled:
+            prof.on_step((time.perf_counter() - t0) * 1e6)
         self.steps_run += 1
-        return logits[:, 0].to(torch.float32).cpu().numpy(), cache
+        return host, cache
 
     # -- cohort mode ---------------------------------------------------------
 
@@ -181,8 +213,15 @@ class ServeEngine:
             next_tok[slot, 0] = req.prompt[0]
         t = 0
         while not all(done.values()) and t < self.max_seq - 1:
-            self._useful_slot_steps += sum(1 for v in done.values() if not v)
+            m = obs.metrics()
+            live = sum(1 for v in done.values() if not v)
+            self._useful_slot_steps += live
+            if m is not None:
+                m.histogram("batch.occupancy",
+                            UNIT_BUCKETS).observe(live / self.n_slots)
             logits, cache = self._decode_once(cache, next_tok)
+            if m is not None:
+                m.counter("serve.decode_steps").inc()
             sampled = self._sample(logits)
             for slot, req in reqs.items():
                 if done[slot]:
@@ -201,6 +240,9 @@ class ServeEngine:
             self.batcher.finished.append(rid)
             s.active = False
             s.request_id = None
+        m = obs.metrics()
+        if m is not None:
+            m.counter("serve.requests_completed").inc(len(members))
 
     def _run_cohort_mode(self, max_cohorts: int) -> int:
         cohorts = 0
@@ -210,7 +252,18 @@ class ServeEngine:
             members = self.batcher.admit()
             if not members:
                 continue
-            self._run_cohort(members)
+            m = obs.metrics()
+            if m is not None:
+                m.histogram("serve.cohort_size",
+                            COUNT_BUCKETS).observe(len(members))
+                m.gauge("serve.queue_depth").set(self.batcher.queue_depth)
+            tr = obs.tracer()
+            if tr is not None:
+                with tr.span("serve.cohort", cat="serve",
+                             cohort=cohorts, size=len(members)):
+                    self._run_cohort(members)
+            else:
+                self._run_cohort(members)
             cohorts += 1
         return cohorts
 
@@ -228,6 +281,7 @@ class ServeEngine:
         next_tok = np.zeros((self.n_slots, 1), np.int32)
         arena_pos = 0
         while arena_pos < self.max_seq:
+            m = obs.metrics()
             active_before = b.active_slots
             admitted = b.admit(arena_pos=arena_pos)
             for slot, rid, _plen in admitted:
@@ -237,14 +291,23 @@ class ServeEngine:
                 fed[slot] = 1
             if admitted and active_before > 0:
                 self._inflight_admissions += len(admitted)
+            if admitted and m is not None:
+                m.gauge("serve.queue_depth").set(b.queue_depth)
             active = [i for i, s in enumerate(b.slots) if s.active]
             if not active:
                 break       # drained, or head request needs a fresh arena
             self._useful_slot_steps += len(active)
+            if m is not None:
+                m.histogram("batch.occupancy",
+                            UNIT_BUCKETS).observe(len(active)
+                                                  / self.n_slots)
             cache["start"] = torch.from_numpy(starts).to(self.device)
             logits, cache = self._decode_once(cache, next_tok)
             arena_pos += 1
+            if m is not None:
+                m.counter("serve.decode_steps").inc()
             sampled = self._sample(logits)
+            completed = 0
             for i in active:
                 req = self._requests[b.slots[i].request_id]
                 if fed[i] < len(req.prompt):
@@ -253,12 +316,21 @@ class ServeEngine:
                     continue
                 req.tokens.append(int(sampled[i]))
                 next_tok[i, 0] = sampled[i]
-                b.advance(i)                # frees the slot when finished
+                if b.advance(i) is not None:
+                    completed += 1          # slot freed; refilled next step
+            if completed and m is not None:
+                m.counter("serve.requests_completed").inc(completed)
 
     def _run_token_mode(self, max_generations: int) -> int:
         generations = 0
         while generations < max_generations and not self.batcher.done():
-            self._run_arena()
+            tr = obs.tracer()
+            if tr is not None:
+                with tr.span("serve.arena", cat="serve",
+                             generation=generations):
+                    self._run_arena()
+            else:
+                self._run_arena()
             generations += 1
         return generations
 

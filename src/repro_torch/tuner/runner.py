@@ -20,8 +20,10 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.builder import KernelBuilder, args_meta
+from repro_torch.core.device import current_device_kind, get_device
 from repro_torch.core.param import Config
 from repro_torch.kernels._build import KernelBuildError, KernelLaunchError
+from repro_torch.prof.profile import profile_fields, profile_from_workload
 
 INFEASIBLE = float("inf")
 
@@ -126,7 +128,9 @@ class WallClockEvaluator:
     each after an L2 flush, timed with CUDA events on the current stream.
     The score is the best repeat, in microseconds. Build and launch
     errors make a config infeasible, with nvcc's or CUDA's message in
-    ``error``; nothing else is caught.
+    ``error``; nothing else is caught. Every feasible result carries its
+    roofline profile (``info["profile"]``, from the kernel's workload hook
+    and the score) when the kernel has a hook.
 
     Example::
 
@@ -190,5 +194,16 @@ class WallClockEvaluator:
         for _ in range(self.warmup):
             fn(*self.args)
         times = [self._time_once(fn) for _ in range(self.repeats)]
-        return EvalResult(min(times) * 1e6, True, verified=verified,
-                          info={"times_us": [t * 1e6 for t in times]})
+        score_us = min(times) * 1e6
+        info: dict = {"times_us": [t * 1e6 for t in times]}
+        if self.builder._workload is not None:
+            # Always-on profiling: joining the workload with the score is
+            # one pure function call.
+            problem = self.builder.get_problem_size(*self.meta)
+            w = self.builder.make_workload(config, problem, self.dtype)
+            p = profile_from_workload(
+                w, get_device(current_device_kind(self.device)), self.dtype,
+                score_us, kernel=self.builder.name, problem_size=problem,
+                config=config)
+            info["profile"] = profile_fields(p)
+        return EvalResult(score_us, True, verified=verified, info=info)

@@ -365,3 +365,95 @@ def test_serve_engine_on_card(cuda_device):
     rep = eng.run()
     assert rep.mode == "token" and rep.requests_completed == 4
     assert all(len(t) == 5 for t in rep.values())
+
+
+# ------------------------------------------------- telemetry and profiles
+
+#: (kernel, problem, dtype, config update): each CUDA kernel of the paths,
+#: the memory-bound stencils on a grid whose fields do not fit the L2.
+PROFILED_CASES = [
+    ("advec_u", (256, 256, 256), "float32", {}),
+    ("advec_u", (256, 256, 256), "bfloat16", {"body": "ldg", "strip_z": 64}),
+    ("diff_uvw", (256, 256, 256), "float32", {}),
+    ("diff_uvw", (256, 256, 256), "bfloat16", {"fuse_outputs": False,
+                                              "body": "tile"}),
+    ("matmul", (512, 512, 1024), "float32", {}),
+    ("matmul", (2048, 2048, 2048), "bfloat16", {}),
+    ("flash_attention_causal", (32, 8, 1024, 128), "bfloat16", {}),
+    ("flash_attention_full", (16, 16, 512, 128), "float32", {}),
+]
+
+
+@pytest.mark.parametrize("name,problem,dtype,upd", PROFILED_CASES)
+def test_profiled_launch_has_a_roofline_share(cuda_device, tmp_path, name,
+                                              problem, dtype, upd):
+    """Three forced launches through a WisdomKernel with obs enabled and a
+    profiler sampling every launch: launch.count equals the stats entries,
+    every launch has a profile, and each roofline fraction is in (0, 1.05]
+    (above 1 the workload's counts would be wrong)."""
+    from repro_torch.obs import runtime
+    from repro_torch.prof import Profiler
+
+    b = get_kernel(name)
+    cfg = b.default_config() | upd
+    k = WisdomKernel(b, wisdom_dir=tmp_path, device_kind="gpu-h100")
+    pr = Profiler(sample_every=1)
+    k.attach_profiler(pr)
+    args = [a.to(cuda_device) for a in b.make_probe_args(problem, dtype)]
+    runtime.disable()
+    reg, _ = runtime.enable()
+    try:
+        for _ in range(3):
+            k(*args, config=cfg)
+        snap = reg.snapshot()
+    finally:
+        runtime.disable()
+    assert snap["counters"][f"launch.count{{kernel={name}}}"] == len(
+        k.stats) == 3
+    assert len(pr.profiles) == 3
+    for p, st in zip(pr.profiles, k.stats):
+        assert p.config == cfg and p.device_kind == "gpu-h100"
+        assert p.latency_us == pytest.approx(st.launch_s * 1e6, abs=1e-3)
+        assert 0 < p.roofline_fraction <= 1.05, p.to_json()
+
+
+@pytest.mark.parametrize("name,upd,problem", [
+    ("advec_u", {"block_size_x": 32, "strip_z": 64}, (128, 96, 136)),
+    ("diff_uvw", {"fuse_outputs": False, "body": "tile"}, (128, 96, 136)),
+    ("diff_uvw", {"block_size_x": 64, "tile_factor_z": 4}, (128, 96, 136)),
+    ("matmul", {"split_k": 4, "block_k": 16}, (384, 320, 1000)),
+])
+def test_static_kernel_matches_forced_wisdom_kernel(cuda_device, tmp_path,
+                                                    name, upd, problem):
+    """The header's config launched by StaticKernel (on the card by
+    default) and by a WisdomKernel forced to it: bit for bit for the
+    stencils, within the tuner's tolerance for matmul."""
+    from repro_torch.core import Wisdom, WisdomRecord, make_provenance
+    from repro_torch.core.export import StaticKernel, export_header
+
+    b = get_kernel(name)
+    cfg = b.default_config() | upd
+    assert b.space.is_valid(cfg)
+    w = Wisdom(name)
+    w.add(WisdomRecord(device_kind="gpu-h100", device_family="gpu-hopper",
+                       problem_size=problem, dtype="float32", config=cfg,
+                       score_us=1.0, provenance=make_provenance()))
+    w.save(tmp_path / "wisdom")
+    hdr = export_header(name, "gpu-h100", wisdom_dir=tmp_path / "wisdom",
+                        out_dir=tmp_path / "gen")
+    static = StaticKernel(b, hdr)
+    assert static.config == cfg and static.device.type == "cuda"
+    wk = WisdomKernel(b, wisdom_dir=tmp_path / "empty",
+                      device_kind="gpu-h100")
+    for dtype in ("float32", "bfloat16"):
+        args = [a.to(cuda_device) for a in b.make_probe_args(problem, dtype)]
+        got, want = static(*args), wk(*args, config=cfg)
+        if name == "matmul":
+            out = verify_outcome(got, want, dtype)
+            assert out.ok, out.error
+        else:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(torch.equal(g, v) for g, v in zip(got, want))
+    with pytest.raises(ValueError, match="runs on cuda"):
+        static(*b.make_probe_args(problem, "float32"))

@@ -127,8 +127,8 @@ def main() -> int:
                     "diff_uvw_fused", shape, dtype)
                 if g != 256 and name == "advec_u":
                     a = a[:3] + a[4:]
-                bound_ms, _ = cs.bound(*cs.work(name, shape, dtype),
-                                       "float32")
+                bound_ms, _ = cs.bound(name, shape, dtype,
+                                       cs.kernel_cfg(name, {}))
                 for cfg in configs[name]:
                     ms = cs.time_ms(cs.calls(name, cfg, a)[0])
                     row = {"kernel": name, "grid": g, "dtype": dtype,
