@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Plant faults in the flash-attention (K4), matmul (K3) and stencil (K1,
-K2b) kernels and read what the checks of ``chip_smoke.py`` make of them, on
-one H100.
+K2a, K2b) kernels and read what the checks of ``chip_smoke.py`` make of
+them, on one H100.
 
     python3 chip_fault_check.py
 
@@ -21,7 +21,9 @@ Builds the kernels as they are and altered copies, in a temporary directory
 * ``clamp_halo`` (K1): the tile body's halo clamps at the grid's edge
   instead of wrapping (``tile::halo_index`` in ``stencil_tile.cuh``);
 * ``stale_z_queue`` (K2b): the single-field tile body's register queue of
-  f skips its shift on the second staged plane of each strip.
+  f skips its shift on the second staged plane of each strip;
+* ``fused_field_alias`` (K2a): the fused tile body reads w's y neighbours
+  from v's ring buffer.
 
 The readings, as ``chip_smoke.py`` takes them:
 
@@ -39,11 +41,11 @@ The readings, as ``chip_smoke.py`` takes them:
 3. K3 (sound kernel and K3 faults): phase 2's matmul check at 8192^3 in
    float32 and bfloat16, every config of ``chip_smoke.MATMUL_CONFIGS``, the
    tuner's allclose; it passes only if every config does;
-4. K1 and K2b (sound kernels and the stencil faults): phase 2's tile-body
-   checks of advec_u and diff_uvw_single, every config of
-   ``chip_smoke.TILE_CONFIGS`` on the test shapes and the ragged one, in
-   float32 and bfloat16, the tuner's allclose; each passes only if every
-   case does.
+4. K1, K2a and K2b (sound kernels and the stencil faults): phase 2's
+   tile-body checks of advec_u, diff_uvw_fused and diff_uvw_single, every
+   config of ``chip_smoke.TILE_CONFIGS`` on the test shapes and the ragged
+   one, in float32 and bfloat16, the tuner's allclose; each passes only if
+   every case does.
 
 Exits non-zero unless the sound kernels pass every reading and every fault
 fails each reading of its kernel.
@@ -98,12 +100,22 @@ FAULTS = {
     "stale_z_queue": ("diff_uvw.cu", (
         ("        tile::push(fq, tile::to_f32(sf[front]));\n",
          "        if (p != 1) tile::push(fq, tile::to_f32(sf[front]));\n"),)),
+    "fused_field_alias": ("diff_uvw.cu", (
+        ("          const float fy[3] = {at(f, -S::PITCH), q[f][1], "
+         "at(f, S::PITCH)};\n",
+         "          const int g = f == 2 ? 1 : f;\n"
+         "          const float fy[3] = {at(g, -S::PITCH), q[f][1], "
+         "at(g, S::PITCH)};\n"),)),
 }
-#: The readings taken for each source's faults.
-READINGS = {"flash_attention.cu": ("k4", "lm_c"), "matmul.cu": ("k3",),
-            "stencil_tile.cuh": ("k1",), "diff_uvw.cu": ("k2b",)}
+#: The readings taken for each fault: those of the kernel it is planted in.
+READINGS = {"no_mask": ("k4", "lm_c"), "late_tile": ("k4", "lm_c"),
+            "kv_release_before_softmax": ("k4", "lm_c"),
+            "drop_last_split": ("k3",), "early_stage_reuse": ("k3",),
+            "clamp_halo": ("k1",), "stale_z_queue": ("k2b",),
+            "fused_field_alias": ("k2a",)}
 #: The stencil readings: reading -> the kernel it holds.
-STENCIL_READINGS = {"k1": "advec_u", "k2b": "diff_uvw_single"}
+STENCIL_READINGS = {"k1": "advec_u", "k2a": "diff_uvw_fused",
+                    "k2b": "diff_uvw_single"}
 
 
 def use_source(csrc: Path, build: Path) -> None:
@@ -222,7 +234,7 @@ def main() -> int:
             else:
                 csrc = faulted_copy(sound[0], Path(tmp), fault)
                 use_source(csrc, csrc / "build")
-                checks = READINGS[FAULTS[fault][0]]
+                checks = READINGS[fault]
             name = fault or "sound"
             r = {}
             if "k4" in checks:
@@ -249,7 +261,7 @@ def main() -> int:
           f"relative L2 {flash_attention.ROW_L2_TOL['bfloat16']}; (c) "
           f"{smoke.LM_BF16_TOL} (max abs, x max(1, max|ref|); and relative "
           f"L2); K3 allclose {smoke.tolerance('float32')} in float32, "
-          f"{smoke.tolerance('bfloat16')} in bfloat16; K1 and K2b as K3")
+          f"{smoke.tolerance('bfloat16')} in bfloat16; K1, K2a and K2b as K3")
     print(smoke.nvidia_smi())
     bad = [f"{name} {check}" for name, r in readings.items()
            for check in r if r[check]["ok"] != (name == "sound")]

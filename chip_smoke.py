@@ -11,12 +11,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (one nvcc per source and config, all started together) and hold each
    CUDA kernel against its plain PyTorch version on the card: the stencils
    on the small test shapes and a ragged (5, 7, 9) in float32 and
-   bfloat16, in three ldg configs and (advec_u, diff_uvw_single) four tile
-   ones, and at the MicroHH grids 256^3 and 512^3 in the default and both
-   bodies, each launch counted under the body its config names; matmul in five configs (both bodies, split_k 1/2/4, stages
-   2-4) at its test shapes, a ragged one, a bfloat16 one that TMA cannot
-   take, (m, n, k) = (512, 512, 1024) and 8192^3 in float32 and bfloat16
-   (naming the body each case ran), flash attention at GQA 4/4, 4/2 and
+   bfloat16, in three ldg configs and four tile ones (K1, K2a and K2b), and
+   at the MicroHH grids 256^3 and 512^3 in the default and both bodies,
+   each launch counted under the body its config names; matmul in five
+   configs (both bodies, split_k 1/2/4, stages 2-4) at its test shapes, a
+   ragged one, a bfloat16 one that TMA cannot take, (m, n, k) = (512, 512,
+   1024) and 8192^3 in float32 and bfloat16 (naming the body each case
+   ran), flash attention at GQA 4/4, 4/2 and
    8/1, causal and full, S 256, 512 and a ragged 200, D 128, in four
    configs (bfloat16 runs two in the wgmma body and two in the mma body;
    each line names them), and at the LM slice's prefill shape BH 128 x
@@ -27,7 +28,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 4. the MicroHH loop: tune advec_u and diff_uvw at 256^3 in float32 and
    bfloat16, select each in tier "exact", then launch both at 512^3 through a
    fallback tier and check them against their plain versions; the stencils'
-   launches are printed by body, and advec_u must have run its tile body;
+   launches are printed by body and by (body, dtype), and advec_u must have
+   run its tile body;
 5. the LM slice on codeqwen1.5-7b at full width: (a) in float32 with 2
    layers, prefill logits (flash kernel) against the same prompt fed token
    by token through decode_step; (b) in bfloat16 with all 32 layers, prefill
@@ -38,8 +40,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ServeEngine in token mode answers 8 requests;
 6. times from CUDA events beside each kernel's bound, its plain version's
    time and, for matmul and flash attention, the library call's; K1, K2a
-   and K2b at 256^3 and 512^3 in both dtypes (K1 and K2b in the default,
-   the tuned config and both bodies at one block); matmul in
+   and K2b at 256^3 and 512^3 in both dtypes (each in the default, the
+   tuned config and both bodies at one block; K2a and K2b also at the tile
+   default, K2a's time beside K2b's a call); matmul in
    bfloat16 too; flash attention at the slice shape in the default
    (wgmma), tuned and one mma config; matmul (512, 512, 1024) float32 and
    flash attention at the slice shape in every config of their spaces
@@ -50,10 +53,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``KERNEL_LAUNCHER_PROF`` profiler, attached to ``ops``' kernels too).
    Between phases 4 and 5, after the main path's launch counts are read,
    a WisdomKernel is forced to launch diff_uvw at 512^3 in both fused
-   variants (the path's selection runs one of its two CUDA kernels), so
-   both go through the launch path; their profiles form the "forced"
-   group. Phase 7 checks that ``launch.count`` of each kernel equals the
-   WisdomKernel stats entries the runs appended and the profiles taken;
+   variants of the selected config (the path's selection runs one of its
+   two CUDA kernels), so both go through the launch path; their profiles
+   form the "forced" group. Each profile line names the bodies its
+   group's launches ran. Phase 7 checks that ``launch.count`` of each
+   kernel equals the WisdomKernel stats entries the runs appended and the
+   profiles taken;
    that the saved trace passes ``validate_trace``, holds one ``launch``
    span for each profiled launch, covering every CUDA kernel, and one
    ``serve.arena`` span per generation of (e); prints one profile line per
@@ -66,7 +71,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
-last two lines are the ``kernels`` JSON and ``{"ok": true, "device": ...}``.
+last two lines are the ``kernels`` JSON (each kernel's launches on its path,
+in all and by body and dtype) and ``{"ok": true, "device": ...}``.
 With no card, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.
 """
@@ -148,15 +154,15 @@ LDG_CONFIGS = [
      "tile_factor_z": 8, "strip_z": 64, "unravel_permutation": "yzx",
      "min_blocks_per_sm": 4},
 ]
-#: advec_u's default: a tile config, checked and timed in K2b too.
+#: advec_u's default: a tile config, checked and timed in K2a and K2b too.
 TILE_DEFAULT = get_kernel("advec_u").default_config()
 #: The tile body at the ldg default's block, timed beside it in phase 6.
 TILE_LDG_BLOCK = {"body": "tile", "block_size_x": 32, "block_size_y": 4,
                   "strip_z": 64, "unravel_permutation": "xyz",
                   "min_blocks_per_sm": 1}
-#: Stencil configs checked in the tile body (advec_u, diff_uvw_single):
-#: the default, the ldg block, the smallest tile with the shortest strip,
-#: and the widest tile with the longest.
+#: Stencil configs checked in the tile body (each stencil kernel): advec_u's
+#: default, the ldg block, the smallest tile with the shortest strip, and
+#: the widest tile with the longest.
 TILE_CONFIGS = [
     TILE_DEFAULT, TILE_LDG_BLOCK,
     {"body": "tile", "block_size_x": 16, "block_size_y": 2, "strip_z": 32,
@@ -445,10 +451,9 @@ def phase_environment() -> str:
 
 
 def stencil_configs(name: str) -> list[dict]:
-    """The configs phase 2 checks ``name`` in: LDG_CONFIGS and, where the
-    kernel has a tile body, TILE_CONFIGS."""
-    tile = TILE_CONFIGS if name != "diff_uvw_fused" else []
-    return [kernel_cfg(name, u) for u in [*LDG_CONFIGS, *tile]]
+    """The configs phase 2 checks ``name`` in: LDG_CONFIGS and
+    TILE_CONFIGS."""
+    return [kernel_cfg(name, u) for u in [*LDG_CONFIGS, *TILE_CONFIGS]]
 
 
 def phase_build() -> None:
@@ -571,8 +576,6 @@ def phase_kernels() -> dict:
             for body in ("ldg", "tile"):
                 cfgs = [c for c in stencil_configs(name)
                         if c["body"] == body]
-                if not cfgs:
-                    continue
                 shapes = [*SMALL_STENCIL, RAGGED_STENCIL]
                 err = max(max(check_stencil(name, cfgs, shape, dtype,
                                             "x".join(map(str, shape))))
@@ -583,13 +586,11 @@ def phase_kernels() -> dict:
                       f"{tolerance(dtype)} ok", flush=True)
     for dtype in DTYPES:
         for g in (256, 512):
-            for name in STENCILS:
-                cfgs = [kernel_cfg(name, {})]
-                if name != "diff_uvw_fused":   # both bodies
-                    cfgs += [kernel_cfg(name, u)
-                             for u in (LDG_CONFIGS[0], TILE_DEFAULT)]
-                    cfgs = list({json.dumps(c, sort_keys=True): c
-                                 for c in cfgs}.values())
+            for name in STENCILS:   # the default and both bodies
+                cfgs = [kernel_cfg(name, u)
+                        for u in ({}, LDG_CONFIGS[0], TILE_DEFAULT)]
+                cfgs = list({json.dumps(c, sort_keys=True): c
+                             for c in cfgs}.values())
                 errs = check_stencil(name, cfgs, (g, g, g), dtype, f"{g}^3",
                                      verbose=True)
                 if g == 512 and dtype == "float32":
@@ -653,7 +654,8 @@ def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
     bodies = {k: dict(_build.CUDA_KERNELS[k].body_launches)
               for k in STENCILS}
     print(f"main-path launches: {json.dumps(counts)}; stencils by body: "
-          f"{json.dumps(bodies)}", flush=True)
+          f"{json.dumps(bodies)}; by body and dtype: "
+          f"{json.dumps(launches_by(STENCILS))}", flush=True)
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
     check(bodies["advec_u"].get("tile", 0) > 0,
@@ -661,15 +663,23 @@ def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
     return qs, mh, counts
 
 
+def launches_by(names) -> dict:
+    """Each CUDA kernel's launches since the counts were last reset, by
+    "body dtype"."""
+    return {k: {f"{body} {dtype}": n for (body, dtype), n in sorted(
+        _build.CUDA_KERNELS[k].body_dtype_launches.items(), key=str)}
+            for k in names}
+
+
 def both_diff_kernels(mh: dict, wisdom: Path) -> int:
     """diff_uvw at 512^3 float32 through a WisdomKernel forced into both
-    fused variants: the config the fallback tier selected and the same
-    block in the other variant (fused runs the ldg body), each checked
-    against the plain version. The main path's selection launches one of
-    diff_uvw's two CUDA kernels through the launch path (the tuner
-    launches both, but not through a WisdomKernel); this gives the other
-    a launch span and a profile too. Run after the main path's counts are
-    read, so they are not counted there. Returns the launches."""
+    fused variants of the config the fallback tier selected (its own body
+    in each), each checked against the plain version. The main path's
+    selection launches one of diff_uvw's two CUDA kernels through the
+    launch path (the tuner launches both, but not through a WisdomKernel);
+    this gives the other a launch span and a profile too. Run after the
+    main path's counts are read, so they are not counted there. Returns
+    the launches."""
     sel = next(st.config for name, dtype, st, _ in mh["launched"]
                if (name, dtype) == ("diff_uvw", "float32"))
     k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=wisdom,
@@ -677,7 +687,7 @@ def both_diff_kernels(mh: dict, wisdom: Path) -> int:
     args = tune_microhh.launch_args("diff_uvw", (512,) * 3, "float32",
                                     torch.device("cuda"))
     want = ref.diff_uvw_ref(*args)
-    for cfg in (as_ldg(sel) | {"fuse_outputs": True},
+    for cfg in (sel | {"fuse_outputs": True},
                 sel | {"fuse_outputs": False}):
         check(k.builder.space.is_valid(cfg), f"diff_uvw: {cfg} invalid")
         out = verify_outcome(k(*args, config=cfg), want, "float32")
@@ -789,6 +799,7 @@ def phase_telemetry(reg, tr, pr, stats: Counter, paths: list,
             "latency_us": p.latency_us, "compute_us": p.compute_us,
             "memory_us": p.memory_us, "bottleneck": p.bottleneck,
             "roofline_fraction": p.roofline_fraction, "profiles": len(ps),
+            "bodies": dict(Counter(q.config.get("body") for q in ps)),
             "fraction_range": [min(fracs), max(fracs)]}), flush=True)
     return snap
 
@@ -1096,12 +1107,6 @@ def phase_lm() -> dict:
     return out
 
 
-def as_ldg(cfg: dict) -> dict:
-    """``cfg``'s block in the ldg body (strip_z pinned): the fused kernel's
-    config for a tile config of diff_uvw."""
-    return cfg | {"body": "ldg", "strip_z": 64}
-
-
 def phase_times(qs: dict, mh: dict) -> dict:
     rows = {}
     tuned_256 = {(sc.kernel, sc.dtype): res.best_config
@@ -1120,24 +1125,29 @@ def phase_times(qs: dict, mh: dict) -> dict:
                  "ldg": kernel_cfg("advec_u", LDG_CONFIGS[0]),
                  "tile": kernel_cfg("advec_u", TILE_LDG_BLOCK)},
                 [*args[:3], args[4]])
-            rows[("diff_uvw_fused", g, dtype)] = timing_row(
-                "diff_uvw_fused", shape, dtype,
-                {"default": kernel_cfg("diff_uvw_fused", {}),
-                 "tuned": as_ldg(d_cfg) | {"fuse_outputs": True}}, args)
-            rows[("diff_uvw_single", g, dtype)] = timing_row(
-                "diff_uvw_single", shape, dtype,
-                {"default": kernel_cfg("diff_uvw_single", {}),
-                 "tuned": d_cfg | {"fuse_outputs": False},
-                 "ldg": kernel_cfg("diff_uvw_single", LDG_CONFIGS[0]),
-                 "tile": kernel_cfg("diff_uvw_single", TILE_LDG_BLOCK),
-                 "tile_default": kernel_cfg("diff_uvw_single",
-                                            TILE_DEFAULT)}, args)
+            for name in STENCILS[1:]:
+                rows[(name, g, dtype)] = timing_row(
+                    name, shape, dtype,
+                    {"default": kernel_cfg(name, {}),
+                     "tuned": d_cfg | {"fuse_outputs":
+                                       name == "diff_uvw_fused"},
+                     "ldg": kernel_cfg(name, LDG_CONFIGS[0]),
+                     "tile": kernel_cfg(name, TILE_LDG_BLOCK),
+                     "tile_default": kernel_cfg(name, TILE_DEFAULT)}, args)
+            fused, single = (rows[(n, g, dtype)] for n in STENCILS[1:])
+            print("time K2a vs K2b a call " + json.dumps({
+                "shape": list(shape), "dtype": dtype} | {
+                f"{label}_ms": [fused[f"{label}_ms"], single[f"{label}_ms"],
+                                fused[f"{label}_ms"] / single[f"{label}_ms"]]
+                for label in ("tile", "tile_default")} | {
+                "bound_ms": [fused["bound_ms"], single["bound_ms"]]}) +
+                  " ([K2a, K2b, K2a / K2b])", flush=True)
             del args
-    print(f"time stencils: default and tuned as selected; ldg and tile at "
+    print(f"time stencils: default and tuned as selected (tuned K2a and "
+          f"K2b: the tuned config in each fused variant); ldg and tile at "
           f"one block ({TILE_LDG_BLOCK['block_size_x']} x "
           f"{TILE_LDG_BLOCK['block_size_y']}); tile_default "
-          f"{json.dumps(TILE_DEFAULT)} (advec_u's default); tuned fused = "
-          f"the tuned block in the ldg body", flush=True)
+          f"{json.dumps(TILE_DEFAULT)} (advec_u's default)", flush=True)
     res = qs["result"]
     rows[("matmul", 512, "float32")] = timing_row(
         "matmul", QS_MATMUL, "float32",
@@ -1217,6 +1227,7 @@ def main() -> int:
         wisdom = Path(tmp) / "wisdom"
         reg, tr, pr = instrument()
         qs, mh, counts = phase_main_path(wisdom)
+        by = launches_by(LOOP_KERNELS)
         paths = [("main", len(pr.profiles))]
         stats = Counter({"matmul": len(qs["stats"])})
         stats.update(name for name, *_ in mh["launched"])
@@ -1237,6 +1248,7 @@ def main() -> int:
         for name, n in lm_counts.items():
             check(n > 0, f"{name} was not launched on the LM path")
         counts |= lm_counts
+        by |= launches_by(LM_KERNELS)
         print(f"[{time.perf_counter() - t0:.0f}s] LM path done", flush=True)
         rows = phase_times(qs, mh)
         rows[("flash_attention", 2048, "bfloat16")] = phase_lm_times(lm)
@@ -1255,6 +1267,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
             "replaces": TPU_KERNELS[name], "launches": counts[name],
+            "launches_by_body_dtype": by[name],
             "max_abs_err": headline[name], "ms": row["tuned_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -192,7 +192,7 @@ class CudaKernel:
     ``ctypes.c_void_p`` for every pointer and for the stream. ``launches``
     counts the launches that returned ``cudaSuccess``; ``body_launches``
     counts them by the ``body`` a caller names, where a source has more
-    than one.
+    than one, and ``body_dtype_launches`` by (body, dtype).
     """
 
     def __init__(self, name: str, source: str, symbol: str,
@@ -203,6 +203,7 @@ class CudaKernel:
         self.argtypes = (ctypes.c_int, *argtypes)
         self.launches = 0
         self.body_launches: dict[str, int] = {}
+        self.body_dtype_launches: dict[tuple[str | None, str], int] = {}
         # defines -> (the loaded Library, its entry point with argtypes set)
         self._entry: dict[Defines, tuple[Library, ctypes._CFuncPtr]] = {}
         CUDA_KERNELS[name] = self
@@ -236,10 +237,15 @@ class CudaKernel:
         self.launches += 1
         if body is not None:
             self.body_launches[body] = self.body_launches.get(body, 0) + 1
+        key = (body, dtype)
+        self.body_dtype_launches[key] = self.body_dtype_launches.get(key,
+                                                                     0) + 1
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's ``launches`` and ``body_launches`` to 0."""
+    """Set every kernel's ``launches`` and its counts by body and dtype
+    to 0."""
     for k in CUDA_KERNELS.values():
         k.launches = 0
         k.body_launches.clear()
+        k.body_dtype_launches.clear()

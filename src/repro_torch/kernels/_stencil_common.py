@@ -10,8 +10,9 @@ the paper's own CUDA tuning space (``repro/kernels/advec_u.py:5-11``): block
 size X/Y/Z, the tile factor in z, the unravel permutation and the minimum
 number of blocks per SM (``__launch_bounds__``).
 
-The space's ``body`` axis picks one of two CUDA bodies, compiled one per
-build (``-DTILE``):
+The space's ``body`` axis picks one of two CUDA bodies of each kernel
+(advec_u, diff_uvw_fused, diff_uvw_single), compiled one per build
+(``-DTILE``):
 
 * ``"ldg"``: each thread walks ``tile_factor_z`` points of one (x, y) column
   and reads every neighbour through ``__ldg`` (``csrc/advec_u.cu``,
@@ -28,6 +29,7 @@ card cannot give (:func:`plan`).
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
@@ -62,16 +64,17 @@ BLOCK_Z_PIN, TILE_FACTOR_PIN = 1, 2
 #: field the (y, x) halo it stages (``tile::Stage<T, HY, HX>``).
 TILE_STENCILS = {
     "advec_u": (3, ((3, 3), (1, 0), (0, 0))),      # u, v, w
+    "diff_uvw_fused": (1, ((1, 1),) * 4),          # u, v, w, evisc
     "diff_uvw_single": (1, ((1, 1), (1, 1))),      # f, evisc
 }
 
 
-def add_stencil_space(builder: KernelBuilder, tile_kernel: str,
+def add_stencil_space(builder: KernelBuilder, kernel_of: Callable,
                       body: str = "ldg", block=(32, 4), strip: int = STRIP_PIN,
                       min_blocks: int = 1) -> None:
     """The paper's CUDA axes, restricted to 32-1024 threads a block, and
-    the body axis. ``tile_kernel`` names the kernel whose tile body the
-    builder launches (its shared memory bounds the space); ``body``,
+    the body axis. ``kernel_of(config)`` is the CUDA kernel a config
+    launches (its tile body's shared memory bounds the space); ``body``,
     ``block`` (x, y), ``strip`` and ``min_blocks`` are the defaults."""
     builder.tune("body", BODIES, default=body)
     builder.tune("block_size_x", (16, 32, 64, 128, 256), default=block[0])
@@ -100,7 +103,7 @@ def add_stencil_space(builder: KernelBuilder, tile_kernel: str,
 
     def tile_fits_card(config) -> bool:
         return config["body"] == "ldg" or not plan(
-            tile_kernel, config, (64, 64, 64), "float32").refusal
+            kernel_of(config).name, config, (64, 64, 64), "float32").refusal
 
     builder.restriction(tile_fits_card)
 
@@ -167,7 +170,7 @@ def plan(kernel: str, config, shape, dtype: str) -> StencilPlan:
     addresses (``tile::vectorizable``)."""
     nz, ny, nx = shape
     bx, by = config["block_size_x"], config["block_size_y"]
-    if config["body"] == "ldg" or kernel == "diff_uvw_fused":
+    if config["body"] == "ldg":
         bz = config["block_size_z"]
         tile = (bx, by, bz * config["tile_factor_z"])
         block = (bx, by, bz)

@@ -37,7 +37,7 @@ def kernel_of(config) -> CudaKernel:
     return kernel
 
 builder = KernelBuilder("advec_u", source="repro_torch.kernels.advec_u")
-add_stencil_space(builder, "advec_u", body="tile", block=(64, 4), strip=128,
+add_stencil_space(builder, kernel_of, body="tile", block=(64, 4), strip=128,
                   min_blocks=2)
 
 

@@ -5,9 +5,8 @@ with a variable eddy viscosity, halo-1 stencil, as tunable CUDA kernels
 ``fuse_outputs`` stays an axis of the space: True launches the fused kernel
 (inputs read once, three outputs), False the single-field kernel once per
 field (evisc read three times). The body axis (see ``_stencil_common``)
-reaches the single-field kernel only: ``tile`` is allowed with
-``fuse_outputs=False`` alone, and the default stays the fused ``ldg``
-config. On CPU tensors the plain PyTorch versions
+reaches both kernels: ``ldg`` or ``tile``, whose fused body stages u, v, w
+and evisc in one ring. On CPU tensors the plain PyTorch versions
 run: ``diff_uvw_ref`` for the fused variant, ``diff_one_ref`` per field for
 the single one.
 """
@@ -34,16 +33,16 @@ fused_kernel = CudaKernel("diff_uvw_fused", "diff_uvw.cu", "diff_uvw_fused",
 single_kernel = CudaKernel("diff_uvw_single", "diff_uvw.cu",
                            "diff_uvw_single", (_P,) * 4 + (_I, _I, _I, _P))
 
-builder = KernelBuilder("diff_uvw", source="repro_torch.kernels.diff_uvw")
-add_stencil_space(builder, "diff_uvw_single")
-builder.tune("fuse_outputs", (True, False), default=True)
-builder.restriction("body == 'ldg' or not fuse_outputs")
-
 
 def kernel_of(config) -> CudaKernel:
     """The CUDA kernel a launch in ``config`` runs: the fused one once, or
     the single-field one three times."""
     return fused_kernel if config["fuse_outputs"] else single_kernel
+
+
+builder = KernelBuilder("diff_uvw", source="repro_torch.kernels.diff_uvw")
+add_stencil_space(builder, kernel_of)
+builder.tune("fuse_outputs", (True, False), default=True)
 
 
 def plan(config, shape, dtype: str) -> StencilPlan:
@@ -62,8 +61,6 @@ def launch_fused(config, u, v, w, evisc, scal):
     """(ut, vt, wt) in one pass: the fused CUDA kernel on CUDA tensors, the
     plain version on CPU tensors."""
     check_fields((u, v, w, evisc), scal)
-    if config["body"] != "ldg":
-        raise ValueError("diff_uvw_fused has the ldg body only")
     if u.device.type == "cpu":
         return _ref.diff_uvw_ref(u, v, w, evisc, scal)
     require_cuda(u, "diff_uvw_fused")
@@ -72,7 +69,8 @@ def launch_fused(config, u, v, w, evisc, scal):
     fused_kernel(stencil_defines(config), dtype_name(u.dtype),
                  u.data_ptr(), v.data_ptr(), w.data_ptr(), evisc.data_ptr(),
                  scal.data_ptr(), *(o.data_ptr() for o in outs), nz, ny, nx,
-                 torch.cuda.current_stream(u.device).cuda_stream, body="ldg")
+                 torch.cuda.current_stream(u.device).cuda_stream,
+                 body=config["body"])
     return outs
 
 
@@ -123,10 +121,8 @@ def _workload(config, problem, dtype):
     no halo factor)."""
     flops = 3 * _ref.DIFF_FLOPS_PER_POINT_PER_FIELD
     if config["fuse_outputs"]:
-        w = stencil_workload("diff_uvw_fused", config, problem, dtype,
-                             flops, fields=7)
-        # launch_fused refuses a tile config
-        return w if config["body"] == "ldg" else w.scaled(valid=False)
+        return stencil_workload("diff_uvw_fused", config, problem, dtype,
+                                flops, fields=7)
     return stencil_workload("diff_uvw_single", config, problem, dtype,
                             flops, fields=9, launches=3)
 

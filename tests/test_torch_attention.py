@@ -446,20 +446,26 @@ def test_wgmma_configs_build_the_wgmma_body_at_the_slice(key):
 
 
 def test_body_launch_counts_reset_with_the_launch_counts(monkeypatch):
-    """A launch that names its body counts there and in ``launches``;
-    ``reset_launch_counts`` zeroes both, and BODY_LAUNCHES is the kernel's
-    own dict, so it sees the reset."""
+    """A launch that names its body counts there, under (body, dtype)
+    and in ``launches``; ``reset_launch_counts`` zeroes all three, and
+    BODY_LAUNCHES is the kernel's own dict, so it sees the reset."""
     kern = flash_attention.kernel
     monkeypatch.setattr(kern, "entry", lambda defines: lambda *a: 0)
     before = kern.launches
+    by = dict(kern.body_dtype_launches)
     kern((), "bfloat16", body="wgmma")
     kern((), "bfloat16", body="wgmma")
     kern((), "float32", body="mma")
     assert kern.launches == before + 3
     assert flash_attention.BODY_LAUNCHES["wgmma"] >= 2
     assert flash_attention.BODY_LAUNCHES is kern.body_launches
+    assert kern.body_dtype_launches[("wgmma", "bfloat16")] == by.get(
+        ("wgmma", "bfloat16"), 0) + 2
+    assert kern.body_dtype_launches[("mma", "float32")] == by.get(
+        ("mma", "float32"), 0) + 1
     _build.reset_launch_counts()
     assert kern.launches == 0 and flash_attention.BODY_LAUNCHES == {}
+    assert kern.body_dtype_launches == {}
 
 
 def test_port_sources_import_neither_jax_nor_repro():

@@ -89,16 +89,18 @@ def _stencil_fields(cuda_device, shape, n, dtype, offset):
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("shape", STENCIL_BODY_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single",
+                                  "diff_uvw_fused"])
 def test_stencil_bodies_match_plain_version(cuda_device, name, dtype, shape,
                                             offset):
-    """Both bodies of K1 and K2b against the plain version under the
+    """Both bodies of K1, K2a and K2b against the plain version under the
     tuner's tolerance, on ragged and tiny grids, aligned or not; each
     launch counted under the body its config names."""
     scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], device=cuda_device)
     u, v, w, e = _stencil_fields(cuda_device, shape, 4, dtype, offset)
     b = get_kernel("advec_u" if name == "advec_u" else "diff_uvw")
-    extra = {} if name == "advec_u" else {"fuse_outputs": False}
+    extra = ({} if name == "advec_u"
+             else {"fuse_outputs": name == "diff_uvw_fused"})
     configs = [b.default_config() | extra | upd
                for upd in STENCIL_BODY_CONFIGS]
     src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
@@ -110,6 +112,9 @@ def test_stencil_bodies_match_plain_version(cuda_device, name, dtype, shape,
         if name == "advec_u":
             got = advec_u.launch(cfg, u, v, w, scal)
             want = ref.advec_u_ref(u, v, w, scal)
+        elif name == "diff_uvw_fused":
+            got = diff_uvw.launch_fused(cfg, u, v, w, e, scal)
+            want = ref.diff_uvw_ref(u, v, w, e, scal)
         else:
             got = diff_uvw.launch_single(cfg, u, e, scal)
             want = ref.diff_one_ref(u, e, scal)
@@ -120,20 +125,56 @@ def test_stencil_bodies_match_plain_version(cuda_device, name, dtype, shape,
 
 
 def test_tile_launch_the_card_refuses_raises(cuda_device):
-    """A tile block of 256 x 8 threads (outside the space: 2048 threads)
-    is refused by nvcc or by the card: the wrapper raises, counts nothing,
-    and does not fall back to the other body or the plain version."""
+    """A tile block of 256 x 8 threads in K1 and of 256 x 16 in K2a
+    (outside the space: 2048 and 4096 threads; K2a's plan needs 304,128
+    bytes of shared memory) is refused by nvcc or by the card: the wrapper
+    raises, counts nothing, and does not fall back to the other body or
+    the plain version."""
     cfg = advec_u.builder.default_config() | {"block_size_x": 256,
                                               "block_size_y": 8}
     assert not advec_u.builder.space.is_valid(cfg)
-    u, v, w = _stencil_fields(cuda_device, (16, 16, 256), 3, "float32",
-                              False)
+    u, v, w, e = _stencil_fields(cuda_device, (16, 16, 256), 4, "float32",
+                                 False)
     scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], device=cuda_device)
     k = _build.CUDA_KERNELS["advec_u"]
     before = (k.launches, dict(k.body_launches))
     with pytest.raises((_build.KernelBuildError, _build.KernelLaunchError)):
         advec_u.launch(cfg, u, v, w, scal)
     assert (k.launches, dict(k.body_launches)) == before
+
+    fused = diff_uvw.builder.default_config() | {
+        "body": "tile", "block_size_x": 256, "block_size_y": 16,
+        "fuse_outputs": True}
+    assert not diff_uvw.builder.space.is_valid(fused)
+    assert diff_uvw.plan(fused, (16, 16, 256), "float32").refusal
+    k = _build.CUDA_KERNELS["diff_uvw_fused"]
+    before = (k.launches, dict(k.body_launches))
+    with pytest.raises((_build.KernelBuildError, _build.KernelLaunchError)):
+        diff_uvw.launch_fused(fused, u, v, w, e, scal)
+    assert (k.launches, dict(k.body_launches)) == before
+
+
+@pytest.mark.parametrize("shape", [(24, 40, 136), (33, 17, 200), (64,) * 3],
+                         ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_tile_matches_single_tile_launches(cuda_device, dtype, shape):
+    """K2a's tile body (one launch, three tendencies) against K2b's tile
+    body (three launches) at the same block, under the tuner's tolerance:
+    the same arithmetic, term for term."""
+    scal = torch.tensor([[1.1, 0.9, 1.3, 0.0]], device=cuda_device)
+    u, v, w, e = _stencil_fields(cuda_device, shape, 4, dtype, False)
+    cfg = diff_uvw.builder.default_config() | {
+        "body": "tile", "block_size_x": 64, "block_size_y": 4,
+        "strip_z": 64, "min_blocks_per_sm": 2}
+    fused, single = cfg | {"fuse_outputs": True}, cfg | {
+        "fuse_outputs": False}
+    assert diff_uvw.builder.space.is_valid(fused)
+    got = diff_uvw.launch_fused(fused, u, v, w, e, scal)
+    want = tuple(diff_uvw.launch_single(single, f, e, scal)
+                 for f in (u, v, w))
+    torch.cuda.synchronize()
+    out = verify_outcome(got, want, dtype)
+    assert out.ok, out.error
 
 
 #: (dtype, shape) -> the body the shape rule gives it: (128, 96, 72) is

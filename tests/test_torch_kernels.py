@@ -370,14 +370,13 @@ def _stencil_configs(name):
     cfgs = [base,
             base | {"body": "ldg", "block_size_x": 128, "block_size_y": 2,
                     "block_size_z": 2, "tile_factor_z": 4, "strip_z": 64,
-                    "min_blocks_per_sm": 1}]
-    if name != "diff_uvw_fused":
-        cfgs += [tile | {"block_size_x": 16, "block_size_y": 2,
-                         "strip_z": 32, "min_blocks_per_sm": 1},
-                 tile | {"block_size_x": 256, "block_size_y": 4,
-                         "strip_z": 128, "min_blocks_per_sm": 1},
-                 tile | {"block_size_x": 32, "block_size_y": 16,
-                         "strip_z": 32, "min_blocks_per_sm": 2}]
+                    "min_blocks_per_sm": 1},
+            tile | {"block_size_x": 16, "block_size_y": 2,
+                    "strip_z": 32, "min_blocks_per_sm": 1},
+            tile | {"block_size_x": 256, "block_size_y": 4,
+                    "strip_z": 128, "min_blocks_per_sm": 1},
+            tile | {"block_size_x": 32, "block_size_y": 16,
+                    "strip_z": 32, "min_blocks_per_sm": 2}]
     for c in cfgs:
         assert b.space.is_valid(c), c
     return cfgs
@@ -396,8 +395,7 @@ def test_stencil_plan_covers_every_point_once(name, shape):
     ragged grids and on grids smaller than a tile, in both bodies."""
     for cfg in _stencil_configs(name):
         p = _plan(name, cfg, shape, "float32")
-        assert p.kernel == name and p.body == (
-            "ldg" if name == "diff_uvw_fused" else cfg["body"])
+        assert p.kernel == name and p.body == cfg["body"]
         covered = np.zeros(shape, np.int64)
         gx, gy, gz = p.grid
         for bz in range(gz):
@@ -445,7 +443,8 @@ def _staged_indices(p, halo, bx, by, z, vec):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(5, 7, 9), (4, 6, 16), (7, 3, 48)],
                          ids=str)
-@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw_single",
+                                  "diff_uvw_fused"])
 def test_tile_halo_indices_wrap_like_np_roll(name, shape, dtype):
     """The cells a tile block stages for each field, plane and block, by
     chunks and element by element, are the cells np.roll brings to the
@@ -479,23 +478,27 @@ def test_tile_halo_indices_wrap_like_np_roll(name, shape, dtype):
                             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("name", ["advec_u", "diff_uvw"])
+@pytest.mark.parametrize("name", ["advec_u", "diff_uvw", "diff_uvw_fused"])
 def test_every_tile_config_fits_shared_memory(name):
     """Every valid tile config's shared memory fits a block in both dtypes,
     and ``min_blocks_per_sm`` of them (with the card's 1 KB a block) fit
     an SM; the plan refuses what does not fit, and the space leaves it
-    out."""
+    out. "diff_uvw" takes the space's unfused configs (the single-field
+    kernel), "diff_uvw_fused" its fused ones."""
     from repro_torch.kernels import _stencil_common as sc
 
     mod = advec_u if name == "advec_u" else diff_uvw
-    space = get_kernel(name).space
-    tiles = [c for c in space.enumerate() if c["body"] == "tile"]
+    space = get_kernel("advec_u" if name == "advec_u" else "diff_uvw").space
+    tiles = [c for c in space.enumerate() if c["body"] == "tile"
+             and c.get("fuse_outputs", False) == (name == "diff_uvw_fused")]
     assert len(tiles) > 500
     for cfg in tiles:
         assert cfg["block_size_z"] == 1 and cfg["tile_factor_z"] == 2
         assert cfg["block_size_y"] >= 2
         for dtype in ("float32", "bfloat16"):
             p = mod.plan(cfg, (256, 256, 256), dtype)
+            assert p.kernel == ("diff_uvw_single" if name == "diff_uvw"
+                                else name)
             assert p.body == "tile" and p.refusal == ""
             assert 0 < p.smem_bytes <= 232_448
             assert cfg["min_blocks_per_sm"] * (
@@ -536,16 +539,30 @@ def test_stencil_defaults_valid_and_no_two_configs_launch_one_kernel():
                 cfg["body"] == "tile")
 
 
-def test_fuse_outputs_admits_only_ldg():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fuse_outputs_admits_tile_where_it_fits(rng, dtype):
+    """The space holds fused tile configs, each one's plan (the fused
+    kernel's: four staged fields) fits the card, and ``launch_fused`` in a
+    tile config on CPU tensors equals the reference's ``diff_uvw``."""
     d = get_kernel("diff_uvw")
-    fused = [c for c in d.space.enumerate() if c["fuse_outputs"]]
-    assert fused and all(c["body"] == "ldg" for c in fused)
-    tile = d.default_config() | {"body": "tile"}
-    assert not d.space.is_valid(tile)
-    assert d.space.is_valid(tile | {"fuse_outputs": False})
-    u, v, w, e, scal = _cpu_args("diff_uvw")
-    with pytest.raises(ValueError, match="ldg body only"):
-        diff_uvw.launch_fused(tile, u, v, w, e, scal)
+    fused_tile = [c for c in d.space.enumerate()
+                  if c["fuse_outputs"] and c["body"] == "tile"]
+    assert fused_tile
+    for cfg in fused_tile:
+        p = diff_uvw.plan(cfg, (64, 64, 64), dtype)
+        assert p.kernel == "diff_uvw_fused" and p.body == "tile"
+        assert p.refusal == "" and 0 < p.smem_bytes <= 232_448
+    tile = d.default_config() | {"body": "tile", "fuse_outputs": True}
+    assert d.space.is_valid(tile)
+    # 64 x 4: 4 buffers x 4 fields x 6 rows x a pitch of 72 (f32) or 80
+    assert diff_uvw.plan(tile | {"block_size_x": 64}, (64, 64, 64),
+                         dtype).smem_bytes == {"float32": 27_648,
+                                               "bfloat16": 15_360}[dtype]
+    u, v, w, e = _arrays(rng, [(16, 32, 128)] * 4, dtype, square=(3,))
+    want = repro_ref.diff_uvw_ref(u, v, w, e, SCAL)
+    got = diff_uvw.launch_fused(tile, *_port([u, v, w, e], dtype),
+                                torch.from_numpy(SCAL))
+    _assert_close(got, want, dtype)
 
 
 def test_wisdom_from_before_the_body_axis_is_foreign():

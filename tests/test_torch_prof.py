@@ -256,6 +256,7 @@ SMEM_CASES = [
     ("advec_u", {"body": "ldg", "strip_z": 64}, "float32"),      # ldg
     ("diff_uvw", {"fuse_outputs": False, "body": "tile"}, "float32"),
     ("diff_uvw", {}, "bfloat16"),                                # fused
+    ("diff_uvw", {"body": "tile", "block_size_x": 64}, "float32"),  # fused
     ("matmul", {}, "float32"),                                   # simt
     ("matmul", {"stages": 4, "block_m": 64}, "bfloat16"),        # wgmma
     ("flash_attention_causal", {}, "bfloat16"),                  # wgmma
@@ -288,7 +289,8 @@ def test_vmem_bytes_is_the_launchers_shared_memory(name, upd, dtype):
 
 INVALID_CASES = [
     ("advec_u", {}, (2, 64, 64), "float32"),          # axis under 3 cells
-    ("diff_uvw", {"body": "tile"}, (64, 64, 64), "float32"),  # fused tile
+    ("diff_uvw", {"body": "tile", "block_size_x": 256, "block_size_y": 16},
+     (64, 64, 64), "float32"),        # fused tile: 304,128 B a block
     ("advec_u", {}, (64, 64, 64), "float16"),         # no such kernel
     ("matmul", {}, (64, 0, 64), "float32"),           # empty problem
     ("matmul", {"grid_order": "nmk", "block_m": 64}, (64 * 70_000, 64, 64),

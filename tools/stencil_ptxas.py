@@ -7,7 +7,8 @@ tuning space allows and print what ptxas reports for each kernel.
 A tile config may ask ``__launch_bounds__`` for up to 1024 threads an SM
 (``block_size_x * block_size_y * min_blocks_per_sm``), which leaves a
 thread 64 registers. This builds, for every 2-D block shape of the space,
-the config that reaches that bound, for advec_u.cu and diff_uvw.cu, with
+the config that reaches that bound, for advec_u.cu and diff_uvw.cu (whose
+builds hold both its tile kernels, fused and single-field), with
 ``nvcc -Xptxas -v`` (one nvcc each, all started together), and prints one
 line per kernel instantiation: registers, spill stores and spill loads.
 Exits non-zero if a build fails or any instantiation spills. Needs nvcc;
@@ -30,6 +31,7 @@ from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 
 SOURCES = {"advec_u": "advec_u.cu", "diff_uvw": "diff_uvw.cu"}
 PROPS = re.compile(r"Function properties for (\S*tile_kernel\S*)")
+KERNEL = re.compile(r"[a-z][a-z_]*_tile_kernel")
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 REGS = re.compile(r"Used (\d+) registers")
 
@@ -81,7 +83,8 @@ def main() -> int:
                 regs = REGS.search(lines[i + 2])
                 stores, loads = int(spill.group(1)), int(spill.group(2))
                 bad += bool(stores or loads)
-                print(f"{label} {instantiation(m.group(1))}: "
+                print(f"{label} {KERNEL.search(m.group(1)).group(0)} "
+                      f"{instantiation(m.group(1))}: "
                       f"{regs.group(1)} registers, {stores} bytes spill "
                       f"stores, {loads} bytes spill loads")
     print(f"{len(procs)} builds, {bad} with a spill or a failure")

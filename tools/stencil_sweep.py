@@ -3,8 +3,9 @@
 
     python3 tools/stencil_sweep.py [--out FILE]
 
-For K1 (advec_u) and K2b (diff_uvw, single-field: one call is three
-launches) at 256^3 and 512^3, in float32 and bfloat16, this times
+For K1 (advec_u), K2a (diff_uvw, fused) and K2b (diff_uvw, single-field:
+one call is three launches) at 256^3 and 512^3, in float32 and bfloat16,
+this times
 
 * the tile body: each block of ``TILE_BLOCKS`` at every ``strip_z`` and
   every ``min_blocks_per_sm`` its space allows;
@@ -21,7 +22,8 @@ gets, for each (kernel, grid, dtype), the best config of each body beside
 the bound, each tile block's time at each strip, and last a JSON count of
 the (kernel, grid, dtype, block, blocks an SM) cases each strip wins or
 comes within 2 % of. Builds every library first (one nvcc each, all
-started together). Needs the card.
+started together; K2a's tile configs share K2b's libraries). Needs the
+card.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from chip_smoke import get_kernel, stencil_defines  # noqa: E402
 
-KERNELS = ("advec_u", "diff_uvw_single")
+KERNELS = ("advec_u", "diff_uvw_fused", "diff_uvw_single")
 GRIDS = (256, 512)
 TILE_BLOCKS = ((32, 2), (32, 4), (32, 8), (64, 2), (64, 4), (64, 8),
                (128, 2), (128, 4), (256, 2))
