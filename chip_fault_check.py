@@ -45,7 +45,14 @@ The readings, as ``chip_smoke.py`` takes them:
    tile-body checks of advec_u, diff_uvw_fused and diff_uvw_single, every
    config of ``chip_smoke.TILE_CONFIGS`` on the test shapes and the ragged
    one, in float32 and bfloat16, the tuner's allclose; each passes only if
-   every case does.
+   every case does;
+5. the promotion gate (sound kernels, ``clamp_halo`` and
+   ``fused_field_alias``): ``OracleGate(device="cuda").check``, as online
+   promotion runs it before a config becomes wisdom, for K1's and K2a's
+   tile configs of ``chip_smoke.TILE_CONFIGS`` on the kernel's probe
+   arguments at two grids, in float32 and bfloat16; it passes only if the
+   gate allows every config. A fault that slipped past it would become
+   serving wisdom.
 
 Exits non-zero unless the sound kernels pass every reading and every fault
 fails each reading of its kernel.
@@ -66,6 +73,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import _build, flash_attention, matmul, ref
 from repro_torch.kernels._stencil_common import stencil_defines
 from repro_torch.models import build_model
+from repro_torch.sandbox import OracleGate, clear_verdict_cache
 from repro_torch.tuner.runner import verify_outcome
 
 #: fault -> (source under csrc/, its edits: (text to alter, replacement))
@@ -111,11 +119,15 @@ FAULTS = {
 READINGS = {"no_mask": ("k4", "lm_c"), "late_tile": ("k4", "lm_c"),
             "kv_release_before_softmax": ("k4", "lm_c"),
             "drop_last_split": ("k3",), "early_stage_reuse": ("k3",),
-            "clamp_halo": ("k1",), "stale_z_queue": ("k2b",),
-            "fused_field_alias": ("k2a",)}
+            "clamp_halo": ("k1", "gate_k1"), "stale_z_queue": ("k2b",),
+            "fused_field_alias": ("k2a", "gate_k2a")}
 #: The stencil readings: reading -> the kernel it holds.
 STENCIL_READINGS = {"k1": "advec_u", "k2a": "diff_uvw_fused",
                     "k2b": "diff_uvw_single"}
+#: The gate readings: reading -> the kernel whose configs it checks.
+GATE_READINGS = {"gate_k1": "advec_u", "gate_k2a": "diff_uvw_fused"}
+#: The probe grids of the gate readings.
+GATE_SHAPES = ((24, 40, 136), smoke.RAGGED_STENCIL)
 
 
 def use_source(csrc: Path, build: Path) -> None:
@@ -190,6 +202,31 @@ def stencil_reading(name: str) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
 
 
+def gate_reading(name: str) -> dict:
+    """The promotion gate on the card for stencil ``name``: every tile
+    config of ``TILE_CONFIGS`` on the builder's probe arguments for each
+    of ``GATE_SHAPES``, both dtypes; the verdict cache is cleared first,
+    since its key names the device, not the source."""
+    clear_verdict_cache()
+    gate = OracleGate(device="cuda")
+    builder = smoke.builder_of(name)
+    cases = {}
+    for dtype in smoke.DTYPES:
+        for shape in GATE_SHAPES:
+            for u in smoke.TILE_CONFIGS:
+                cfg = smoke.kernel_cfg(name, u)
+                v = gate.check(builder, cfg, shape, dtype)
+                cases[f"{dtype} {shape} {json.dumps(cfg)}"] = {
+                    "status": v.status, "allowed": gate.allows(v),
+                    "max_abs_err": v.max_err}
+    clear_verdict_cache()
+    vetoed = [c for c in cases.values() if not c["allowed"]]
+    return {"ok": not vetoed, "cases": len(cases), "vetoed": len(vetoed),
+            "statuses": sorted({c["status"] for c in cases.values()}),
+            "max_abs_err": max(c["max_abs_err"] or 0.0
+                               for c in cases.values())}
+
+
 def kernel_reading(args, want: torch.Tensor) -> dict:
     """Phase 2's K4 checks at the slice shape: every config of
     ``FA_SLICE_CONFIGS`` against the plain version's output ``want``."""
@@ -230,7 +267,8 @@ def main() -> int:
         for fault in (None, *FAULTS):
             if fault is None:
                 use_source(*sound)
-                checks = ("k4", "lm_c", "k3", *STENCIL_READINGS)
+                checks = ("k4", "lm_c", "k3", *STENCIL_READINGS,
+                          *GATE_READINGS)
             else:
                 csrc = faulted_copy(sound[0], Path(tmp), fault)
                 use_source(csrc, csrc / "build")
@@ -254,6 +292,11 @@ def main() -> int:
                 if reading in checks:
                     r[reading] = stencil_reading(kernel)
                     print(f"fault {name}: {kernel} tile body "
+                          f"{json.dumps(r[reading])}", flush=True)
+            for reading, kernel in GATE_READINGS.items():
+                if reading in checks:
+                    r[reading] = gate_reading(kernel)
+                    print(f"fault {name}: {kernel} promotion gate "
                           f"{json.dumps(r[reading])}", flush=True)
             readings[name] = r
     use_source(*sound)

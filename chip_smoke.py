@@ -67,7 +67,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    and launches ``StaticKernel`` from them at 512^3 and (512, 512, 1024)
    against a WisdomKernel forced to the same config (bit for bit for the
    stencils, the tuner's tolerance for matmul), with both times and the
-   WisdomKernel's own selection beside the header's config.
+   WisdomKernel's own selection beside the header's config;
+8. online tuning, on copies of phase 4's wisdom with obs enabled, after
+   the paths' launch counts are read: (1) advec_u and diff_uvw at 512^3
+   float32, the two scenarios phase 4 launches through a fallback tier,
+   each through a WisdomKernel with ``enable_online_tuning(objective=
+   "wallclock", seed=0)`` for up to 400 launches: activation at the third
+   miss, screening by the cost model on gpu-h100, a finished bracket of
+   live trials scored by their CUDA-event launch times (a variant's
+   first, cold launch unscored), then either a promotion through the
+   gate on the card (the next launch selects it in tier exact with
+   nothing to compile, its record has online provenance
+   and the verified stamp, its output holds at 512^3) or the incumbent
+   kept; each prints its outcome, the chosen and incumbent configs' times,
+   trial launches, screens, ``online.overhead_us`` and the trials' nvcc
+   seconds apart from their launch times; (2) K2b's tile config offered
+   over its ldg default to ``PromotionPipeline.promote`` by hand: tier
+   exact, nothing compiled, output holds; (3) ``OracleGate`` on the card
+   passes K1's tile default and vetoes the faulty kernel's wrong config;
+   (4) each sandbox fault mode in a spawned child holding a CUDA context
+   gives its status, a child that loses its context to a device-side
+   assertion is a crash, a child builds and times K1, and this process
+   launches K1 afterwards; (5) Spearman's rank correlation between the
+   cost model and phase 6's stencil times at 512^3.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -79,14 +101,17 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from collections import Counter, defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -104,7 +129,9 @@ from repro_torch.core.capture import CAPTURE_DIR_ENV, CAPTURE_ENV  # noqa: E402
 from repro_torch.core.device import get_device  # noqa: E402
 from repro_torch.core.export import (StaticKernel, export_header,  # noqa: E402
                                      load_header)
-from repro_torch.core.scenario import format_key  # noqa: E402
+from repro_torch.core.builder import args_meta  # noqa: E402
+from repro_torch.core.registry import register, unregister  # noqa: E402
+from repro_torch.core.scenario import MISS_TIERS, format_key  # noqa: E402
 from repro_torch.core.wisdom import WISDOM_DIR_ENV  # noqa: E402
 from repro_torch.examples import quickstart, tune_microhh  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
@@ -113,10 +140,19 @@ from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
+from repro_torch.online import enable_online_tuning  # noqa: E402
+from repro_torch.online.promotion import PromotionPipeline  # noqa: E402
 from repro_torch.prof import (PROF_ENV, process_profiler,  # noqa: E402
                               profile_from_workload, reset_process_profiler)
+from repro_torch.sandbox import (FAULT_PARAM, KernelTrial,  # noqa: E402
+                                 OracleGate, SandboxSettings,
+                                 clear_verdict_cache, device_assert,
+                                 make_faulty_kernel, sandboxed_call)
+from repro_torch.sandbox.demo import (EXPECTED_VERDICTS,  # noqa: E402
+                                      run_fault_modes)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.tuner import tune_capture  # noqa: E402
+from repro_torch.tuner import (CostModel, CostModelEvaluator,  # noqa: E402
+                               tune_capture)
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
@@ -417,12 +453,19 @@ def sdpa_call(q, k, v):
 LIBRARY = {"matmul": library_call, "flash_attention_causal": sdpa_call}
 
 
+#: Every (CUDA kernel, shape, dtype, config, ms) phase 6 times: phase 8
+#: ranks the stencils' against the cost model.
+TIMED: list[tuple[str, tuple, str, dict, float]] = []
+
+
 def timing_row(name: str, shape, dtype: str, configs: dict, args) -> dict:
     """Times of each named config, the plain version and (matmul, flash
     attention) the library call, beside the bound; printed and returned."""
     row = {"kernel": name, "shape": list(shape), "dtype": dtype}
     for label, cfg in configs.items():
         row[f"{label}_ms"] = time_ms(calls(name, cfg, args)[0])
+        TIMED.append((name, tuple(shape), dtype, dict(cfg),
+                      row[f"{label}_ms"]))
     row["plain_ms"] = time_ms(calls(name, next(iter(configs.values())),
                                     args)[1], reps=3)
     lib = LIBRARY.get(name)
@@ -1212,6 +1255,328 @@ def phase_lm_times(lm: dict) -> dict:
     return row
 
 
+# ------------------------------------------------------ online tuning (8)
+
+#: The 512^3 float32 scenarios phase 4 launches through a fallback tier.
+ONLINE_SCENARIOS = ("advec_u", "diff_uvw")
+ONLINE_GRID = (512, 512, 512)
+ONLINE_MAX_LAUNCHES = 400
+#: The config phase 8 promotes by hand: K2b's tile body at advec_u's tile
+#: default (64 x 4, strip 128, 2 blocks an SM), over diff_uvw's ldg default
+#: run single-field (2.2615 against 3.0829 ms a call on the H100,
+#: PERF.md §6).
+K2B_TILE = kernel_cfg("diff_uvw_single", TILE_DEFAULT)
+K2B_LDG = kernel_cfg("diff_uvw_single", {})
+#: A spawned child's payload ceiling on the card (its interpreter, imports
+#: and CUDA context come first and do not count); the hang child's is
+#: short, since reaching it is the check. Each CUDA child may take this
+#: share of the card's memory.
+CHILD_TIMEOUT_S, HANG_TIMEOUT_S = 120.0, 5.0
+CHILD_DEVICE_FRACTION = 0.02
+
+
+def _ranks(xs) -> np.ndarray:
+    """Ranks of ``xs`` from 1, ties sharing their mean rank."""
+    xs = np.asarray(xs, dtype=np.float64)
+    order = np.argsort(xs, kind="stable")
+    r = np.empty(len(xs))
+    r[order] = np.arange(1, len(xs) + 1)
+    for v in np.unique(xs):
+        tie = xs == v
+        r[tie] = r[tie].mean()
+    return r
+
+
+def spearman(xs, ys) -> float:
+    """Spearman's rank correlation of two equal-length sequences."""
+    rx, ry = _ranks(xs), _ranks(ys)
+    if rx.std() == 0 or ry.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(rx, ry)[0, 1])
+
+
+def model_us(name: str, shape, dtype: str, cfg: dict) -> tuple[float, float]:
+    """The cost model's time for CUDA kernel ``name`` in ``cfg``: as the
+    online tuner's screening scores it (``CostModelEvaluator`` on the
+    gpu-h100 spec, hashed noise included), and without the noise."""
+    b = builder_of(name)
+    ev = CostModelEvaluator(b, tuple(shape), dtype, H100, verify="none")
+    w = b.make_workload(cfg, tuple(shape), dtype)
+    return (ev(cfg).score_us,
+            CostModel(H100, noise_sigma=0).time(w, dtype) * 1e6)
+
+
+def online_scenario(name: str, wisdom: Path, reg) -> dict:
+    """Phase 8 item 1 for ``name`` at 512^3 float32: traffic through a
+    WisdomKernel with ``enable_online_tuning(objective="wallclock")`` until
+    its scenario's bracket finishes; the outcome is checked and timed."""
+    cuda = torch.device("cuda")
+    k = WisdomKernel(get_kernel(name), wisdom_dir=wisdom,
+                     device_kind=current_device_kind())
+    svc = enable_online_tuning(k, objective="wallclock", seed=0)
+    args = tune_microhh.launch_args(name, ONLINE_GRID, "float32", cuda)
+    activated_at = None
+    for i in range(1, ONLINE_MAX_LAUNCHES + 1):
+        k(*args)
+        state = svc.state(ONLINE_GRID, "float32")
+        if state is not None and activated_at is None:
+            activated_at = i
+        if state is not None and state.finished:
+            break
+    check(activated_at == 3 and all(s.tier in MISS_TIERS
+                                    for s in k.stats[:3]),
+          f"{name}: activated at launch {activated_at}, tiers "
+          f"{[s.tier for s in k.stats[:3]]}; want the third miss")
+    incumbent = dict(k.stats[0].config)
+    check(isinstance(state.evaluator, CostModelEvaluator)
+          and state.evaluator.device.kind == "gpu-h100"
+          and state.scheduler.screens > 0,
+          f"{name}: screening did not run the cost model on gpu-h100")
+    check(state.finished and state.scheduler.winner() is not None,
+          f"{name}: no finished bracket in {len(k.stats)} launches "
+          f"({[e[0] for e in svc.events]})")
+    outcome = svc.events[-1][0]
+    check(outcome in ("promote", "keep-incumbent"),
+          f"{name}: bracket ended in {outcome!r}: {svc.events[-1][2]}")
+    trials = [s for s in k.stats if s.tier == "trial"]
+    built = [s for s in trials if not s.cached]
+    res = {"kernel": name, "outcome": "promoted" if outcome == "promote"
+           else "kept", "launches": len(k.stats),
+           "trial_launches": len(trials), "cold_trials": state.cold_trials,
+           "screens": svc.meter.screens,
+           "activated_at_launch": activated_at,
+           "online_overhead_us": reg.counter("online.overhead_us",
+                                             kernel=name).value,
+           "trial_builds": len(built),
+           "trial_compile_s": sum(s.compile_s for s in built),
+           "trial_load_s": sum(s.load_s for s in built),
+           "trial_launch_ms_median": statistics.median(
+               s.launch_s * 1e3 for s in trials),
+           "incumbent": incumbent}
+    by_cfg: dict[str, list[float]] = {}
+    for st in trials:
+        by_cfg.setdefault(json.dumps(st.config, sort_keys=True), []).append(
+            round(st.launch_s * 1e3, 4))
+    # each trial config's launch times in order (its first launch built and
+    # loaded it, and is not scored), and the incumbent's mean, from the
+    # WisdomKernel's own events
+    res["trial_launch_ms"] = list(by_cfg.values())
+    res["incumbent_launch_ms_mean"] = statistics.mean(
+        s.launch_s * 1e3 for s in k.stats if s.tier != "trial")
+    winner, won_us, n = state.scheduler.winner()
+    res["bracket_winner"] = {"config": winner, "mean_launch_ms":
+                             won_us / 1e3, "measurements": n}
+    if outcome == "promote":
+        out = k(*args)
+        st = k.stats[-1]
+        rec = svc.promotions()[0].record
+        check(st.tier == "exact" and st.config == rec.config,
+              f"{name}: the launch after the promotion ran tier {st.tier}")
+        check(st.cached and st.compile_s == 0.0 and st.load_s == 0.0,
+              f"{name}: the swap launch compiled ({st.compile_s:.3f} s)")
+        check(rec.provenance.get("online") is True
+              and rec.provenance.get("strategy") == "online"
+              and rec.oracle_verified() is not None,
+              f"{name}: promoted record provenance {rec.provenance}")
+        want = (ref.advec_u_ref(*args) if name == "advec_u"
+                else ref.diff_uvw_ref(*args))
+        v = verify_outcome(out, want, "float32")
+        check(v.ok, f"{name}: promoted config at 512^3: {v.error}")
+        res |= {"promoted": rec.config, "swap_compile_s": st.compile_s,
+                "verified": rec.oracle_verified(),
+                "max_abs_err": v.max_err}
+        chosen = rec.config
+    else:
+        print(f"online {name} 512^3 float32: the incumbent was kept "
+              f"(bracket winner {json.dumps(winner)})", flush=True)
+        chosen = winner
+    # times from chip_smoke's own clock: the median of 10 launches, each
+    # after an L2 flush, by CUDA events
+    for label, cfg in (("incumbent", incumbent), ("chosen", chosen)):
+        res[f"{label}_ms"] = time_ms(calls(cuda_kernel(name, cfg), cfg,
+                                           args)[0])
+    res["chosen_over_incumbent"] = res["chosen_ms"] / res["incumbent_ms"]
+    del args
+    torch.cuda.empty_cache()
+    print("online " + json.dumps(res), flush=True)
+    return res
+
+
+def deterministic_promotion(wisdom: Path) -> dict:
+    """Phase 8 item 2: offer K2b's tile config over the ldg default to the
+    promotion pipeline by hand, timed here; the next launch selects it in
+    tier exact with nothing to compile, and its output holds."""
+    cuda = torch.device("cuda")
+    args = tune_microhh.launch_args("diff_uvw", ONLINE_GRID, "float32",
+                                    cuda)
+    tile_ms = time_ms(calls("diff_uvw_single", K2B_TILE, args)[0])
+    ldg_ms = time_ms(calls("diff_uvw_single", K2B_LDG, args)[0])
+    k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=wisdom,
+                     device_kind=current_device_kind())
+    pipe = PromotionPipeline(k)
+    promo = pipe.promote(k.device_kind, ONLINE_GRID, "float32", K2B_TILE,
+                         score_us=tile_ms * 1e3,
+                         incumbent_score_us=ldg_ms * 1e3, n_measurements=10,
+                         evals=2, objective="wallclock",
+                         meta=args_meta(*args))
+    check(promo is not None, f"K2b tile {tile_ms:.4f} ms over ldg "
+          f"{ldg_ms:.4f} ms was not promoted ({pipe.rejections})")
+    gate_device = pipe.oracle._oracles[
+        ("diff_uvw", ONLINE_GRID, "float32", "cuda:0")].args[0].device
+    check(gate_device.type == "cuda", "the gate did not check on the card")
+    out = k(*args)
+    st = k.stats[-1]
+    check(st.tier == "exact" and st.config == K2B_TILE,
+          f"K2b: the next launch ran tier {st.tier} {st.config}")
+    check(st.cached and st.compile_s == 0.0,
+          f"K2b: the swap launch compiled ({st.compile_s:.3f} s)")
+    v = verify_outcome(out, ref.diff_uvw_ref(*args), "float32")
+    check(v.ok, f"K2b tile at 512^3 after promotion: {v.error}")
+    res = {"tile_ms": tile_ms, "ldg_ms": ldg_ms, "tier": st.tier,
+           "compile_s": st.compile_s, "max_abs_err": v.max_err,
+           "verified": promo.record.oracle_verified()}
+    del args
+    torch.cuda.empty_cache()
+    print("online deterministic promotion K2b " + json.dumps(res),
+          flush=True)
+    return res
+
+
+def gate_on_card() -> dict:
+    """Phase 8 item 3: the gate checks on the card; it passes the sound K1
+    tile config and vetoes the faulty kernel's wrong one."""
+    gate = OracleGate(device="cuda")
+    clear_verdict_cache()
+    k1 = gate.check("advec_u", TILE_DEFAULT, (128, 128, 128), "float32")
+    check(k1.ok, f"gate: K1 tile default {k1.status} {k1.detail}")
+    oracle = gate._oracles[("advec_u", (128, 128, 128), "float32", "cuda")]
+    check(all(a.device.type == "cuda" for a in oracle.args),
+          "gate: the K1 probe did not move to the card")
+    faulty = make_faulty_kernel()
+    register(faulty)
+    try:
+        honest = gate.check(faulty, {"scale": 1, FAULT_PARAM: "none"},
+                            (256, 256), "float32")
+        wrong = gate.check(faulty, {"scale": 1, FAULT_PARAM: "wrong"},
+                           (256, 256), "float32")
+    finally:
+        unregister(faulty.name)
+        clear_verdict_cache()
+    check(honest.ok and wrong.status == "numerics-mismatch"
+          and not gate.allows(wrong),
+          f"gate: faulty kernel honest {honest.status}, wrong "
+          f"{wrong.status}")
+    res = {"k1_tile": k1.status, "k1_max_abs_err": k1.max_err,
+           "faulty_honest": honest.status, "faulty_wrong": wrong.status,
+           "faulty_wrong_max_abs_err": wrong.max_err}
+    print("online gate on the card " + json.dumps(res), flush=True)
+    return res
+
+
+def sandbox_on_card() -> dict:
+    """Phase 8 item 4: each fault mode in a spawned child holding a CUDA
+    context, a child that loses its context to a device-side assertion
+    and one that builds and times K1 from the on-disk library, all at
+    once; afterwards this process still launches K1."""
+    def settings(mode):
+        return SandboxSettings(
+            timeout_s=HANG_TIMEOUT_S if mode == "hang" else CHILD_TIMEOUT_S,
+            device_memory_fraction=CHILD_DEVICE_FRACTION)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        modes = pool.submit(run_fault_modes, EXPECTED_VERDICTS, settings,
+                            device="cuda")
+        assert_run = pool.submit(sandboxed_call, functools.partial(
+            device_assert, "cuda"), settings("assert"))
+        trial_run = pool.submit(sandboxed_call, functools.partial(
+            KernelTrial("advec_u", (128, 128, 128), "float32"),
+            TILE_DEFAULT), settings("trial"))
+        runs, (lost, _), (trial, payload) = (
+            modes.result(), assert_run.result(), trial_run.result())
+    res = {}
+    for mode, want in EXPECTED_VERDICTS.items():
+        result, verdict = runs[mode]
+        res[mode] = {"status": verdict.status,
+                     "exit_cause": verdict.exit_cause,
+                     "wall_s": round(verdict.wall_s, 2)}
+        check(verdict.status == want and result.feasible == (mode == "none"),
+              f"sandbox: {mode} in a CUDA child gave {verdict.status} "
+              f"({verdict.detail}); want {want}")
+    check(res["segv"]["exit_cause"] == "signal:11",
+          f"sandbox: segv exit cause {res['segv']['exit_cause']}")
+    check(lost.status == "crash" and "CUDA" in lost.detail,
+          f"sandbox: device-side assert gave {lost.status} {lost.detail}")
+    res["device_assert"] = {"status": lost.status,
+                            "detail": lost.detail[:120]}
+    check(trial.ok and payload.feasible and payload.verified,
+          f"sandbox: K1 trial in a child gave {trial.status} "
+          f"{trial.detail} {payload}")
+    res["k1_trial_in_child_us"] = payload.score_us
+    args = stencil_args("advec_u", (128, 128, 128), "float32")
+    after = compare("advec_u", TILE_DEFAULT, args, "float32",
+                    "after children")
+    res["parent_k1_after_max_abs_err"] = after["max_abs_err"]
+    res["seconds"] = round(time.perf_counter() - t0, 1)
+    print("online sandbox on the card " + json.dumps(res), flush=True)
+    return res
+
+
+def model_rank_correlation() -> dict:
+    """Phase 8 item 5: Spearman's rank correlation between the cost model
+    and phase 6's CUDA-event times of the stencils at 512^3, within each
+    (kernel, dtype) and over all of them."""
+    rows = {}
+    for name, shape, dtype, cfg, ms in TIMED:
+        if name in STENCILS and shape == ONLINE_GRID:
+            rows.setdefault((name, dtype), {})[
+                json.dumps(cfg, sort_keys=True)] = (cfg, ms)
+    res, pooled = {}, ([], [], [])
+    for (name, dtype), by_cfg in sorted(rows.items()):
+        ms = [m for _, m in by_cfg.values()]
+        mod = [model_us(name, ONLINE_GRID, dtype, c)
+               for c, _ in by_cfg.values()]
+        res[f"{name} {dtype}"] = {
+            "n": len(ms), "rho": spearman([m[0] for m in mod], ms),
+            "rho_noise_free": spearman([m[1] for m in mod], ms)}
+        pooled[0].extend(ms)
+        pooled[1].extend(m[0] for m in mod)
+        pooled[2].extend(m[1] for m in mod)
+    res["all"] = {"n": len(pooled[0]), "rho": spearman(pooled[1], pooled[0]),
+                  "rho_noise_free": spearman(pooled[2], pooled[0])}
+    print("online cost model vs phase 6 at 512^3, Spearman " +
+          json.dumps(res), flush=True)
+    return res
+
+
+def phase_online(wisdom: Path, tmp: Path) -> dict:
+    """Phase 8: online tuning on the card, on copies of phase 4's wisdom,
+    with obs enabled."""
+    t8 = time.perf_counter()
+    obs_runtime.disable()
+    reg, _ = obs_runtime.enable()
+    try:
+        out = {}
+        for name in ONLINE_SCENARIOS:
+            copy = tmp / f"online-{name}"
+            shutil.copytree(wisdom, copy)
+            out[name] = online_scenario(name, copy, reg)
+        copy = tmp / "online-k2b"
+        shutil.copytree(wisdom, copy)
+        out["k2b_promotion"] = deterministic_promotion(copy)
+        out["gate"] = gate_on_card()
+        out["sandbox"] = sandbox_on_card()
+        out["spearman"] = model_rank_correlation()
+    finally:
+        obs_runtime.disable()
+    out["seconds"] = time.perf_counter() - t8
+    print(f"phase 8 (online tuning) took {out['seconds']:.1f}s", flush=True)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1258,6 +1623,7 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f}s] phase 7 (telemetry, "
               f"profiles, export) took {time.perf_counter() - t7:.1f}s",
               flush=True)
+        phase_online(wisdom / "microhh", Path(tmp))
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

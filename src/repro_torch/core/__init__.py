@@ -21,7 +21,8 @@ from .compile_cache import CompileCache, LaunchStats
 from .device import (DEVICES, DeviceSpec, current_device, current_device_kind,
                      get_device, resolve_device, GPU_H100, DEVICE_ENV)
 from .param import Config, ConfigSpace, TunableParam
-from .registry import all_kernels, get_kernel, load_builtin_kernels, register
+from .registry import (all_kernels, get_kernel, load_builtin_kernels,
+                       register, unregister)
 from .wisdom import (Wisdom, WisdomIndex, WisdomRecord, WisdomVersionError,
                      WISDOM_VERSION, make_provenance, default_wisdom_dir,
                      merge_lineage, migrate_doc, doc_version)
@@ -38,6 +39,7 @@ __all__ = [
     "get_device", "resolve_device", "GPU_H100", "DEVICE_ENV",
     "Config", "ConfigSpace", "TunableParam",
     "all_kernels", "get_kernel", "load_builtin_kernels", "register",
+    "unregister",
     "Wisdom", "WisdomIndex", "WisdomRecord", "WisdomVersionError",
     "WISDOM_VERSION",
     "make_provenance", "default_wisdom_dir", "merge_lineage", "migrate_doc",

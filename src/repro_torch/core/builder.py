@@ -161,6 +161,10 @@ class KernelBuilder:
             raise ValueError(f"kernel {self.name!r} has no workload fn")
         return self._workload(dict(config), tuple(problem), dtype)
 
+    def has_probe(self) -> bool:
+        """Whether this kernel can synthesize oracle-check arguments."""
+        return self._probe is not None
+
     def make_probe_args(self, problem: tuple[int, ...],
                         dtype: str) -> list[torch.Tensor]:
         """Deterministic CPU argument tensors for (problem, dtype)."""

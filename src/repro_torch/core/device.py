@@ -93,14 +93,20 @@ GPU_A4000 = DeviceSpec(
 # NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16 on the tensor cores,
 # 67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s HBM3, 450 GB/s NVLink each
 # way, 132 SMs with 227 KB of shared memory per block and 64 K registers
-# per SM. Those peaks assume the full 700 W power limit. No per-program
-# overhead was measured for this part; no ported module reads it yet.
+# per SM. Those peaks assume the full 700 W power limit. The analytical
+# cost model (tuner/costmodel.py) reads the rest: a block's shared memory
+# is the per-program capacity; no per-block overhead was measured on the
+# card, so ``program_overhead`` is 0.0; the port's vector work (the
+# stencils) computes in f32 on the CUDA cores in both dtypes, and the
+# model divides the dtype's peak by ``vector_ratio``, so 1.0 prices f32
+# vector work at the 67 TFLOP/s it has (bf16-input stencils, which bytes
+# bound, get the tensor cores' peak instead).
 GPU_H100 = DeviceSpec(
     kind="gpu-h100", family="gpu-hopper",
     flops_bf16=989e12, flops_f32=67e12,
     hbm_bw=3.35e12, vmem_bytes=232_448, ici_bw=450e9,
     program_overhead=0.0, num_cores=132,
-    backend="gpu", matmul_granule=16, vector_ratio=989 / 67,
+    backend="gpu", matmul_granule=16, vector_ratio=1.0,
     smem_per_block=232_448, regs_per_sm=65_536,
 )
 CPU_HOST = DeviceSpec(

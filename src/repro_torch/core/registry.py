@@ -30,6 +30,13 @@ def register(builder: KernelBuilder) -> KernelBuilder:
     return builder
 
 
+def unregister(name: str) -> None:
+    """Remove a kernel registration (no-op when absent), so a host that
+    registers a synthetic kernel (``sandbox.faults``) leaves registry-wide
+    iteration (``all_kernels``) clean afterwards."""
+    _REGISTRY.pop(name, None)
+
+
 def load_builtin_kernels() -> None:
     for mod in _BUILTIN_KERNEL_MODULES:
         importlib.import_module(mod)

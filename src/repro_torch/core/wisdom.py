@@ -200,6 +200,17 @@ class WisdomRecord:
         except (TypeError, ValueError):
             return 0.0
 
+    def oracle_verified(self) -> dict | None:
+        """The correctness-oracle provenance stamp, or None.
+
+        Records promoted through a :class:`repro_torch.sandbox.OracleGate`
+        carry ``provenance["verified"] = {"rtol", "atol", "ref"}``: the
+        dtype-aware tolerances the config's output met against the named
+        plain version. None means the record predates the gate or its
+        kernel was unverifiable."""
+        v = self.provenance.get("verified")
+        return dict(v) if isinstance(v, dict) else None
+
     def record_id(self) -> str:
         """Stable content identity of this tuning result.
 

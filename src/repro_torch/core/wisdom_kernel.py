@@ -13,10 +13,20 @@ switch. A wisdom record whose config this port's space refuses (a TPU
 record, say) is never a candidate: such records are dropped when the wisdom
 file is read, so selection falls through to the next tier, or to the
 kernel's default config.
+
+An online tuner (:class:`repro_torch.online.OnlineTuner`) may be attached
+(explicitly via ``attach_online`` or
+``repro_torch.online.enable_online_tuning``, or automatically when
+``KERNEL_LAUNCHER_ONLINE=1``): every launch then reports its selection
+tier, a small epsilon fraction of launches runs a candidate config instead
+of the incumbent (tier "trial"), and confident winners that pass the
+correctness gate are promoted into the wisdom file live, prewarmed so the
+swap launch compiles nothing.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
 
@@ -25,13 +35,19 @@ import torch
 from repro_torch.obs import runtime as obs
 from repro_torch.obs.metrics import UNIT_BUCKETS
 
-from .builder import KernelBuilder, args_meta
+from .builder import ArgsMeta, KernelBuilder, args_meta
 from .capture import capture_requested, write_capture
 from .compile_cache import CompileCache, LaunchStats
 from .device import current_device_kind
 from .param import Config
 from .scenario import format_key
 from .wisdom import Wisdom
+
+
+def online_requested() -> bool:
+    """KERNEL_LAUNCHER_ONLINE=1 auto-attaches an online tuner per kernel."""
+    return os.environ.get("KERNEL_LAUNCHER_ONLINE", "").lower() in (
+        "1", "true", "on", "yes")
 
 
 class WisdomKernel:
@@ -53,6 +69,10 @@ class WisdomKernel:
         #: is the most recent launch's tier.
         self.tier_counts: dict[str, int] = {}
         self.last_tier: str | None = None
+        self.online = None
+        if online_requested():
+            from repro_torch.online import OnlineTuner  # deferred: a cycle
+            self.online = OnlineTuner(self, wisdom_dir=wisdom_dir)
         #: Sampled launch profiler (see ``repro_torch.prof``) — None unless
         #: attached explicitly or via KERNEL_LAUNCHER_PROF; the per-launch
         #: cost of the disabled site is one attribute check.
@@ -85,6 +105,35 @@ class WisdomKernel:
         self._wisdom = None
         self._selection_cache.clear()
         self.compile_cache.clear()
+
+    def refresh_wisdom(self) -> None:
+        """Re-read wisdom and re-run selection, keeping compiled variants:
+        the hot-swap path of an online promotion (the promoted variant is
+        prewarmed; the old ones stay valid for forced use)."""
+        self._wisdom = None
+        self._selection_cache.clear()
+
+    def attach_online(self, tuner) -> None:
+        """Attach an online tuning service (see ``repro_torch.online``)."""
+        self.online = tuner
+
+    def prewarm(self, meta: ArgsMeta, config: Config) -> bool:
+        """Build and cache ``config`` for the scenario of ``meta`` (the
+        nvcc build and the load, for CUDA tensors) ahead of any launch.
+        Returns True if a build happened here."""
+        key = self._variant_key(meta[0].device,
+                                self.builder.get_problem_size(*meta),
+                                self.builder.get_dtype(*meta), config)
+        _, _, cached = self.compile_cache.get_or_compile(
+            key, lambda: self.builder.make(config, meta))
+        return not cached
+
+    def _variant_key(self, device, problem: tuple[int, ...], dtype: str,
+                     config: Config) -> tuple:
+        """The compile cache's key of ``config`` for one scenario on
+        ``device``."""
+        return (self.device_kind, str(device), problem, dtype,
+                self.builder.space.freeze(config))
 
     def attach_profiler(self, profiler) -> None:
         """Attach a :class:`repro_torch.prof.Profiler`: every Nth launch
@@ -145,13 +194,17 @@ class WisdomKernel:
             config, tier = self.select_config(problem, dtype)
         else:
             tier = "forced"
+        online = self.online
+        if online is not None and tier != "forced":
+            trial = online.before_launch(problem, dtype, meta, config, tier)
+            if trial is not None:
+                config, tier = dict(trial), "trial"
         select_s = time.perf_counter() - t_sel0
         self._observe_selection(problem, dtype, tier)
 
-        key = (self.device_kind, str(device), problem, dtype,
-               self.builder.space.freeze(config))
         fn, make_s, cached = self.compile_cache.get_or_compile(
-            key, lambda: self.builder.make(config, meta))
+            self._variant_key(device, problem, dtype, config),
+            lambda: self.builder.make(config, meta))
         compile_s, load_s = make_s, 0.0
         lib = getattr(fn, "library", None)
         if not cached and lib is not None:
@@ -215,6 +268,12 @@ class WisdomKernel:
                 launch_s * 1e6, tier=tier,
                 baseline_us=self._profile_baselines.get(
                     (self.device_kind, problem, dtype)))
+        if online is not None:
+            # the launch's own time: compile_s and load_s stay out of it;
+            # a launch that built its variant is cold (the card loads the
+            # library's module at its first launch)
+            online.after_launch(problem, dtype, config, tier, launch_s,
+                                cold=not cached)
         return out
 
     def __repr__(self) -> str:  # pragma: no cover

@@ -2,13 +2,13 @@
 
 A copy of ``repro.core.workload``. A KernelBuilder may provide
 ``workload(config, problem, dtype)`` returning a :class:`Workload`. Each of
-the port's kernels registers one for the H100 (flops, compulsory HBM
-traffic, a block's shared memory as ``vmem_bytes``, blocks launched as
-``grid``), which ``repro_torch.prof`` joins with a launch's measured time;
-the TPU-shaped fields (``mxu_tile``, lanes, ``reuse``) stay at their
-defaults. The analytical cost model that turns (Workload, DeviceSpec) into
-a simulated kernel time is not ported yet (see ROADMAP.md), so the port's
-kernels time themselves on the card instead.
+the port's kernels registers one for the H100: flops, compulsory HBM
+traffic, a block's shared memory as ``vmem_bytes`` and the blocks launched
+as ``grid``, which ``repro_torch.prof`` joins with a launch's measured
+time; and the analytical cost model's inputs (``reuse``, ``mxu_tile``,
+``lane_extent``, ``unroll_ways``), from which
+``repro_torch.tuner.costmodel`` ranks configs before any is launched (the
+online tuner's screening). The card's CUDA-event times decide.
 """
 
 from __future__ import annotations

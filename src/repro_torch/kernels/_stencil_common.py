@@ -206,6 +206,26 @@ def plan(kernel: str, config, shape, dtype: str) -> StencilPlan:
 SCAL_BYTES = 16
 
 
+def staged_ratio(kernel: str, p: StencilPlan, dtype: str) -> float:
+    """Cells a block brings on chip per cell it computes, over the fields
+    it reads, from its launch plan ``p``: for the tile body the planes it
+    stages (each with its halo rows and the 16-byte chunk either side in x,
+    ``stage_dims``) over the planes it computes; for the ldg body the box
+    its threads' neighbour reads cover, with the same halos in (y, x) and
+    the stencil radius in z, over the points it writes."""
+    radius, halos = TILE_STENCILS[kernel]
+    tx, ty = p.tile[0], p.tile[1]
+    tz = min(p.tile[2], p.shape[0])
+    if p.body == "tile":
+        cells = sum(r * pitch for r, pitch, _ in
+                    (stage_dims(h, tx, ty, dtype) for h in halos))
+        staged = cells * p.staged_planes
+    else:
+        staged = sum((tx + 2 * hx) * (ty + 2 * hy) for hy, hx in halos) * (
+            tz + 2 * radius)
+    return staged / (len(halos) * tx * ty * tz)
+
+
 def stencil_workload(kernel: str, config, problem, dtype: str,
                      flops_per_point: int, fields: int,
                      launches: int = 1) -> Workload:
@@ -214,13 +234,21 @@ def stencil_workload(kernel: str, config, problem, dtype: str,
     the grid, and the compulsory traffic — ``fields`` grid fields each
     read or written once, plus ``scal``.
 
-    The reference's stencil workloads add halo and re-fetch factors
-    (``reuse``, per-block slabs) because a TPU reuses only what sits in
-    its VMEM. On the H100 the neighbour blocks' halos and the tiles' re-reads
-    hit the 50 MB L2, so the floor the card can reach is the compulsory
-    traffic; ``vmem_bytes`` is one block's shared memory and ``grid`` the
-    blocks launched. Invalid where the launcher refuses the config or the
-    grid (:func:`plan`'s refusal, :func:`check_fields`' range and dtypes).
+    The reference's stencil workloads fold halo and re-fetch waste into
+    ``hbm_bytes`` because a TPU reuses only what sits in its VMEM. On the
+    H100 the neighbour blocks' halos and the tiles' re-reads hit the 50 MB
+    L2, so the floor the card can reach is the compulsory traffic, and
+    ``hbm_bytes`` stays exactly that (the profiler's bounds read it);
+    ``vmem_bytes`` is one block's shared memory and ``grid`` the blocks
+    launched. What the halos cost on the way from L2 to the SMs goes into
+    the cost model's inputs instead: ``reuse`` is :func:`staged_ratio`
+    (K2a's f32 tile time on the H100 follows it: PERF.md §6), ``lane_extent``
+    the grid row the blocks stream together (nx elements, up to the
+    model's 512 bytes), ``unroll_ways`` the points a thread has in flight
+    (its ``tile_factor_z`` column points for ldg; the plane it computes
+    and the ``TILE_AHEAD`` planes in flight for tile). Invalid where the
+    launcher refuses the config or the grid (:func:`plan`'s refusal,
+    :func:`check_fields`' range and dtypes).
     """
     if dtype not in ("float32", "bfloat16"):
         return Workload(0, 0, 0, 0, valid=False)
@@ -232,6 +260,10 @@ def stencil_workload(kernel: str, config, problem, dtype: str,
         hbm_bytes=float(fields * pts * elem + SCAL_BYTES),
         vmem_bytes=p.smem_bytes,
         grid=launches * p.grid[0] * p.grid[1] * p.grid[2],
+        lane_extent=min(p.shape[2], 512 // elem),
+        unroll_ways=(config["tile_factor_z"] if p.body == "ldg"
+                     else 1 + TILE_AHEAD),
+        reuse=staged_ratio(kernel, p, dtype),
         valid=not p.refusal and min(p.shape) >= 3 and pts < 2**31)
 
 

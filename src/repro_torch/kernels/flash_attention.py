@@ -256,9 +256,12 @@ def _make_builder(causal: bool) -> KernelBuilder:
         k/v once per query block, as a TPU must from its VMEM, where on the
         H100 the other query blocks' k/v reads hit the 50 MB L2.
         ``vmem_bytes`` is a block's shared memory in the body
-        :func:`choose_body` picks, ``grid`` the blocks launched. Invalid
-        where :func:`launch` would refuse the problem or the card the
-        config."""
+        :func:`choose_body` picks, ``grid`` the blocks launched. For the
+        cost model, ``mxu_tile`` is a block's (block_q, block_k, D) and
+        ``unroll_ways`` the tiles in flight (the wgmma body's two-stage
+        ring, one for mma); ``reuse`` stays 1, as the k/v re-reads are L2
+        hits. Invalid where :func:`launch` would refuse the problem or the
+        card the config."""
         bh, bhkv, s, d = problem
         body = choose_body(dtype, d, config)
         byt = 4 if dtype == "float32" else 2
@@ -271,7 +274,9 @@ def _make_builder(causal: bool) -> KernelBuilder:
             flops=4.0 * bh * d * pairs,
             hbm_bytes=float((2 * bh + 2 * bhkv) * s * d * byt),
             vmem_bytes=smem_bytes(config, body, d, dtype),
-            grid=-(-s // config["block_q"]) * bh, valid=valid)
+            grid=-(-s // config["block_q"]) * bh,
+            mxu_tile=(config["block_q"], config["block_k"], d),
+            unroll_ways=2 if body == "wgmma" else 1, valid=valid)
 
     @b.probe
     def _probe(problem, dtype):

@@ -283,8 +283,11 @@ def _workload(config, problem, dtype):
     re-reads hit the 50 MB L2, and split-K's f32 partials stay there too at
     the sizes it helps. ``vmem_bytes`` is a block's shared memory in the
     body the shape selects (16-byte aligned operands assumed, as
-    ``torch.empty`` gives), ``grid`` the main kernel's blocks. Invalid
-    where the launcher would refuse the config or the problem."""
+    ``torch.empty`` gives), ``grid`` the main kernel's blocks. For the
+    cost model, ``mxu_tile`` is a block's (block_m, block_n, the k a tile
+    covers), which pads to the card's 16-element granule, ``unroll_ways``
+    the ring's stages, and ``reuse`` stays 1: the re-reads are L2 hits.
+    Invalid where the launcher would refuse the config or the problem."""
     m, n, k = problem
     p = plan(config, m, n, k, dtype)
     b = 4 if dtype == "float32" else 2
@@ -293,7 +296,8 @@ def _workload(config, problem, dtype):
     return Workload(
         flops=2.0 * m * n * k, hbm_bytes=float((m * k + k * n + m * n) * b),
         vmem_bytes=p.smem_bytes, grid=p.grid[0] * p.grid[1] * p.grid[2],
-        valid=valid)
+        mxu_tile=(config["block_m"], config["block_n"], p.tile_k),
+        unroll_ways=config["stages"], valid=valid)
 
 
 @builder.probe

@@ -25,9 +25,10 @@ requests, and traces one ``serve.cohort`` or ``serve.arena`` span per
 cohort or arena generation; a decode-step profiler
 (``repro_torch.prof.StepProfiler``, or the ambient one under
 ``KERNEL_LAUNCHER_PROF``) times sampled steps up to the copy of their
-logits to the host, which every step makes anyway. The reference's other
-collaborators — online autotuners and fleet wisdom sync — are not ported
-yet (ROADMAP.md queue 1 item 10).
+logits to the host, which every step makes anyway. Online autotuners
+(``repro_torch.online.OnlineTuner``, passed as ``online``) are ticked once
+per decode step, as in the reference; fleet wisdom sync (``sync``) is not
+ported yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -118,7 +119,9 @@ class ServeEngine:
     model supports per-slot attention windows, else cohort), ``"token"``
     or ``"cohort"``. The model's ``device`` holds the cache and runs the
     decode steps. ``profiler`` is an optional
-    :class:`repro_torch.prof.StepProfiler`.
+    :class:`repro_torch.prof.StepProfiler`; ``online`` an optional
+    :class:`repro_torch.online.OnlineTuner` (or a list of them), ticked
+    once per decode step.
 
     Example::
 
@@ -130,7 +133,8 @@ class ServeEngine:
 
     def __init__(self, model, params, n_slots: int = 4,
                  max_seq: int = 512, temperature: float = 0.0,
-                 rng_seed: int = 0, profiler=None, mode: str = "auto"):
+                 rng_seed: int = 0, profiler=None, mode: str = "auto",
+                 online=None):
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -152,6 +156,15 @@ class ServeEngine:
         self.steps_run = 0
         self._useful_slot_steps = 0
         self._inflight_admissions = 0
+        # Optional online autotuner(s) (repro_torch.online.OnlineTuner):
+        # each decode step sponsors one launch-budget slice of background
+        # tuning through tick(); the kernels' own launches drive their
+        # trials and promotions.
+        if online is None:
+            online = []
+        elif not isinstance(online, (list, tuple)):
+            online = [online]
+        self.online = list(online)
         # Optional decode-step profiler: every Nth step is timed and
         # recorded as a "serve.decode" roofline profile (params streamed
         # from device memory per step, so small-batch decode is
@@ -200,6 +213,13 @@ class ServeEngine:
         self.steps_run += 1
         return host, cache
 
+    def _tick_services(self, m) -> None:
+        """Per-decode-step collaborator ticks (both modes)."""
+        if m is not None:
+            m.counter("serve.decode_steps").inc()
+        for svc in self.online:
+            svc.tick()
+
     # -- cohort mode ---------------------------------------------------------
 
     def _run_cohort(self, members: list[tuple[int, int, int]]) -> None:
@@ -220,8 +240,7 @@ class ServeEngine:
                 m.histogram("batch.occupancy",
                             UNIT_BUCKETS).observe(live / self.n_slots)
             logits, cache = self._decode_once(cache, next_tok)
-            if m is not None:
-                m.counter("serve.decode_steps").inc()
+            self._tick_services(m)
             sampled = self._sample(logits)
             for slot, req in reqs.items():
                 if done[slot]:
@@ -304,8 +323,7 @@ class ServeEngine:
             cache["start"] = torch.from_numpy(starts).to(self.device)
             logits, cache = self._decode_once(cache, next_tok)
             arena_pos += 1
-            if m is not None:
-                m.counter("serve.decode_steps").inc()
+            self._tick_services(m)
             sampled = self._sample(logits)
             completed = 0
             for i in active:

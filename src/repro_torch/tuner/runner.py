@@ -7,8 +7,11 @@ inputs (the paper's "output verification" option in Kernel Tuner). On CPU
 tensors it times the plain version with the host clock, which exercises the
 loop but measures nothing about a kernel.
 
-The reference's ``CostModelEvaluator`` and ``tuner/costmodel.py`` are not
-ported yet (see ROADMAP.md).
+``CostModelEvaluator`` scores a config with the analytical
+:class:`~repro_torch.tuner.costmodel.CostModel` from the kernel's workload
+hook, without launching it; with ``verify_args`` each distinct config is
+also run once on those tensors and held to the plain version
+(:func:`verify_config`). It is the online tuner's screening objective.
 """
 
 from __future__ import annotations
@@ -17,15 +20,19 @@ import time
 from dataclasses import dataclass, field
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.builder import KernelBuilder, args_meta
-from repro_torch.core.device import current_device_kind, get_device
+from repro_torch.core.device import (DeviceSpec, current_device_kind,
+                                     get_device)
 from repro_torch.core.param import Config
 from repro_torch.kernels._build import KernelBuildError, KernelLaunchError
 from repro_torch.prof.profile import profile_fields, profile_from_workload
 
-INFEASIBLE = float("inf")
+from .costmodel import INFEASIBLE, CostModel
+
+VERIFY_BYTES_LIMIT = 64 * 2**20  # skip in-loop verification beyond this
 
 #: Bytes written between timed repeats to evict the card's 50 MB L2, so no
 #: repeat finds its inputs cached by the one before (the whole quickstart
@@ -69,11 +76,13 @@ def _tolerances(dtype: str) -> tuple[float, float]:
 class VerifyOutcome:
     """Structured result of one comparison with the plain version.
 
-    ``kind`` classifies a failure: ``""`` (passed), ``"structure"``
-    (output count or shape mismatch) or ``"numerics"`` (``allclose``
-    failed). ``max_err`` is the largest absolute deviation over all
-    outputs; ``rtol``/``atol`` are the dtype-aware tolerances used, the
-    absolute one scaled by the largest reference magnitude (at least 1).
+    ``kind`` classifies a failure: ``""`` (passed), ``"build"`` (the
+    config could not be built or launched: :func:`verify_config`),
+    ``"structure"`` (output count or shape mismatch) or ``"numerics"``
+    (``allclose`` failed). ``max_err`` is the largest absolute deviation
+    over all outputs; ``rtol``/``atol`` are the dtype-aware tolerances
+    used, the absolute one scaled by the largest reference magnitude (at
+    least 1).
 
     Example::
 
@@ -117,6 +126,108 @@ def verify_outcome(got, want, dtype: str) -> VerifyOutcome:
                 False, kind="numerics", max_err=max_err, rtol=rtol,
                 atol=atol, error=f"allclose failed, max abs err {max_err:.3e}")
     return VerifyOutcome(True, max_err=max_err, rtol=rtol, atol=atol)
+
+
+def verify_config(builder: KernelBuilder, config: Config,
+                  args: Sequence[torch.Tensor]) -> VerifyOutcome:
+    """Build ``config``, run it on ``args`` and hold its output to the
+    plain version's on the same tensors (:func:`verify_outcome`).
+
+    On CUDA tensors this launches the hand-written kernel; on CPU tensors
+    the built callable is the plain version itself, so the check compares
+    it with itself. A build or launch failure of any kind is the
+    config's verdict (kind ``"build"``), as in the reference.
+
+    Example::
+
+        out = verify_config(get_kernel("matmul"), config, [a, b])
+        assert out.ok, out.error
+    """
+    meta = args_meta(*args)
+    dtype = builder.get_dtype(*meta)
+    rtol, atol = _tolerances(dtype)
+    try:
+        got = builder.make(config, meta)(*args)
+        if meta[0].device.type == "cuda":
+            torch.cuda.synchronize(meta[0].device)
+    except Exception as e:  # noqa: BLE001 — any build/run failure = invalid
+        return VerifyOutcome(False, kind="build", rtol=rtol, atol=atol,
+                             error=f"build/run failed: "
+                                   f"{type(e).__name__}: {e}")
+    return verify_outcome(got, builder.make_reference()(*args), dtype)
+
+
+class CostModelEvaluator:
+    """Score a config with the analytical cost model, launching nothing.
+
+    The kernel's ``workload`` hook, priced by
+    :class:`~repro_torch.tuner.costmodel.CostModel` for ``device`` (a
+    :class:`DeviceSpec` or a kind), keyed by config, problem and dtype for
+    the model's deterministic noise. With ``verify_args`` each distinct
+    config is also checked once against the plain version on those
+    tensors (:func:`verify_config`; ``verify="auto"`` skips it above
+    64 MiB of arguments, ``"full"`` never does, ``"none"`` always does).
+    Every feasible result carries its workload and roofline profile in
+    ``info``.
+
+    Example::
+
+        ev = CostModelEvaluator(get_kernel("advec_u"), (512, 512, 512),
+                                "float32", "gpu-h100", verify="none")
+        score = ev(builder.default_config()).score_us
+    """
+
+    def __init__(self, builder: KernelBuilder, problem: tuple[int, ...],
+                 dtype: str, device: DeviceSpec | str,
+                 verify_args: Sequence[torch.Tensor] | None = None,
+                 verify: str = "auto") -> None:
+        self.builder = builder
+        self.problem = tuple(problem)
+        self.dtype = dtype
+        self.device = get_device(device) if isinstance(device, str) else device
+        self.model = CostModel(self.device)
+        self.verify_args = verify_args
+        self.verify = verify
+        self._verified_cache: dict[tuple, VerifyOutcome] = {}
+
+    def _should_verify(self) -> bool:
+        if self.verify == "none" or self.verify_args is None:
+            return False
+        if self.verify == "full":
+            return True
+        nbytes = sum(a.numel() * a.element_size() for a in self.verify_args)
+        return nbytes <= VERIFY_BYTES_LIMIT
+
+    def __call__(self, config: Config) -> EvalResult:
+        if not self.builder.space.is_valid(config):
+            return EvalResult(INFEASIBLE, False, error="restricted")
+        w = self.builder.make_workload(config, self.problem, self.dtype)
+        key = "|".join(f"{k}={config[k]}" for k in sorted(config))
+        key += f"|{self.problem}|{self.dtype}"
+        t = self.model.time(w, self.dtype, noise_key=key)
+        if not np.isfinite(t):
+            return EvalResult(INFEASIBLE, False, error="vmem overflow",
+                              info={"vmem_bytes": w.vmem_bytes})
+        verified: bool | None = None
+        if self._should_verify():
+            fkey = self.builder.space.freeze(config)
+            if fkey not in self._verified_cache:
+                self._verified_cache[fkey] = verify_config(
+                    self.builder, config, self.verify_args)
+            out = self._verified_cache[fkey]
+            verified = out.ok
+            if not out.ok:
+                return EvalResult(INFEASIBLE, False, verified=False,
+                                  error=out.error)
+        # Always-on profiling: the workload is already in hand, so joining
+        # it with the score costs one pure function call.
+        p = profile_from_workload(
+            w, self.device, self.dtype, t * 1e6,
+            kernel=self.builder.name, problem_size=self.problem,
+            config=config)
+        return EvalResult(t * 1e6, True, verified=verified,
+                          info={"workload": w,
+                                "profile": profile_fields(p)})
 
 
 class WallClockEvaluator:

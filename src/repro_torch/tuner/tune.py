@@ -1,17 +1,19 @@
 """Tuning entry points + capture replay (paper §4.3) and the CLI.
 
 Port of ``repro.tuner.tune``. ``tune_kernel`` tunes one (kernel, problem,
-dtype, device kind) scenario by wall clock and writes the winner into the
-kernel's wisdom file (``Wisdom.save``, format version 2). ``tune_capture``
-replays a captured launch: no hand-written tuning script, no synthetic data.
+dtype, device kind) scenario by wall clock on the card, or by the analytical
+cost model (``objective="costmodel"``: no launch), and writes the winner
+into the kernel's wisdom file (``Wisdom.save``, format version 2).
+``tune_capture`` replays a captured launch: no hand-written tuning script,
+no synthetic data.
 
 CLI (the paper's "command-line script", §4.3)::
 
     python -m repro_torch.tuner.tune --captures 'captures/*.capture.json' \
         --strategy bayes --budget-evals 40 [--device cpu]
 
-Not ported yet (ROADMAP.md): the cost-model objective, the fleet
-``WisdomStore`` write path, and dataset recording (``record_dataset``).
+Not ported yet (ROADMAP.md): the fleet ``WisdomStore`` write path and
+dataset recording (``record_dataset``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.core.device import (current_device_kind, get_device,
 from repro_torch.core.registry import get_kernel
 from repro_torch.core.wisdom import Wisdom, WisdomRecord, make_provenance
 
-from .runner import WallClockEvaluator
+from .runner import CostModelEvaluator, WallClockEvaluator
 from .strategies import STRATEGIES, TuningResult
 
 DEFAULT_BUDGET_EVALS = 200
@@ -49,11 +51,15 @@ def tune_kernel(builder: KernelBuilder, problem: tuple[int, ...], dtype: str,
                 seed: int = 0,
                 device: str | torch.device = "cuda",
                 repeats: int = 5) -> TuningResult:
-    """Tune one scenario by wall clock on ``device``; record the winner.
+    """Tune one scenario; record the winner.
 
+    ``objective="wallclock"`` times each config on ``device``;
     ``verify_args`` are the concrete arguments the configs run on (a
-    capture's); without them the kernel's probe hook synthesizes the
-    scenario's inputs. Only ``objective="wallclock"`` exists in the port.
+    capture's), and without them the kernel's probe hook synthesizes the
+    scenario's inputs. ``objective="costmodel"`` scores each config with
+    the analytical model for ``device_kind`` and launches nothing, except
+    that with ``verify_args`` each config is checked once on them, moved
+    to ``device``.
 
     Example::
 
@@ -64,16 +70,20 @@ def tune_kernel(builder: KernelBuilder, problem: tuple[int, ...], dtype: str,
         raise ValueError(f"unknown strategy {strategy!r}; "
                          f"have {sorted(STRATEGIES)}")
     if objective == "costmodel":
-        raise NotImplementedError(
-            "the cost-model objective is not ported yet (ROADMAP.md, queue 1 "
-            "item 5); use objective='wallclock'")
-    if objective != "wallclock":
+        if verify_args is not None:
+            dev = resolve_device(device)
+            verify_args = [torch.as_tensor(a).to(dev) for a in verify_args]
+        evaluate = CostModelEvaluator(builder, problem, dtype,
+                                      get_device(device_kind),
+                                      verify_args=verify_args)
+    elif objective == "wallclock":
+        if verify_args is None:
+            verify_args = builder.make_probe_args(problem, dtype)
+        evaluate = WallClockEvaluator(builder, verify_args,
+                                      device=resolve_device(device),
+                                      repeats=repeats)
+    else:
         raise ValueError(f"unknown objective {objective!r}")
-    if verify_args is None:
-        verify_args = builder.make_probe_args(problem, dtype)
-    evaluate = WallClockEvaluator(builder, verify_args,
-                                  device=resolve_device(device),
-                                  repeats=repeats)
     rng = np.random.default_rng(seed)
     result = STRATEGIES[strategy](builder.space, evaluate,
                                   max_evals=max_evals, rng=rng,

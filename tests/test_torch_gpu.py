@@ -498,3 +498,127 @@ def test_static_kernel_matches_forced_wisdom_kernel(cuda_device, tmp_path,
             assert all(torch.equal(g, v) for g, v in zip(got, want))
     with pytest.raises(ValueError, match="runs on cuda"):
         static(*b.make_probe_args(problem, "float32"))
+
+
+# ------------------------------------------- online tuning on the card
+
+#: K1's tile default, and K2b's tile body at the same block over its ldg
+#: default: chip_smoke.py phase 8's configs, here at small grids.
+K1_TILE = get_kernel("advec_u").default_config()
+K2B_TILE = get_kernel("diff_uvw").default_config() | K1_TILE | {
+    "fuse_outputs": False}
+K2B_LDG = get_kernel("diff_uvw").default_config() | {"fuse_outputs": False}
+
+
+def test_gate_checks_the_card_kernel(cuda_device):
+    """The gate moves the probe to the card: the hand-written kernel is
+    held to the plain version, and the faulty kernel's wrong config is
+    vetoed there."""
+    from repro_torch.core.registry import register, unregister
+    from repro_torch.sandbox import (OracleGate, clear_verdict_cache,
+                                     make_faulty_kernel)
+
+    clear_verdict_cache()
+    gate = OracleGate(device="cuda")
+    verdict = gate.check("advec_u", K1_TILE, (24, 40, 136), "float32")
+    assert verdict.ok and verdict.max_err is not None
+    oracle = gate._oracles[("advec_u", (24, 40, 136), "float32", "cuda")]
+    assert all(a.device.type == "cuda" for a in oracle.args)
+    faulty = make_faulty_kernel()
+    register(faulty)
+    try:
+        wrong = gate.check(faulty, {"scale": 1, "fault": "wrong"}, (64, 64),
+                           "float32")
+        honest = gate.check(faulty, {"scale": 1, "fault": "none"}, (64, 64),
+                            "float32")
+    finally:
+        unregister(faulty.name)
+        clear_verdict_cache()
+    assert wrong.status == "numerics-mismatch" and not gate.allows(wrong)
+    assert honest.ok
+
+
+def test_online_wallclock_tuning_on_card(cuda_device, tmp_path):
+    """Phase 8's loop at 64^3: misses from an empty wisdom file, cost-model
+    screening on gpu-h100, live trials timed by CUDA events, then a
+    promotion the next launch selects in tier exact without compiling, or
+    the incumbent kept."""
+    from repro_torch.examples.tune_microhh import launch_args
+    from repro_torch.online import enable_online_tuning
+    from repro_torch.tuner import CostModelEvaluator
+
+    k = WisdomKernel(get_kernel("advec_u"), wisdom_dir=tmp_path,
+                     device_kind="gpu-h100")
+    svc = enable_online_tuning(k, objective="wallclock", seed=0)
+    args = launch_args("advec_u", (64, 64, 64), "float32", cuda_device)
+    for _ in range(400):
+        k(*args)
+        state = svc.state((64, 64, 64), "float32")
+        if state is not None and state.finished:
+            break
+    assert [s.tier for s in k.stats[:3]] == ["default"] * 3
+    assert isinstance(state.evaluator, CostModelEvaluator)
+    assert state.finished and state.scheduler.winner() is not None
+    trials = [s for s in k.stats if s.tier == "trial"]
+    assert trials and all(s.launch_s > 0 for s in trials)
+    outcome = svc.events[-1][0]
+    assert outcome in ("promote", "keep-incumbent")
+    if outcome == "promote":
+        out = k(*args)
+        st = k.stats[-1]
+        assert st.tier == "exact" and st.cached and st.compile_s == 0.0
+        rec = svc.promotions()[0].record
+        assert rec.provenance["online"] and rec.oracle_verified()
+        assert verify_outcome(out, ref.advec_u_ref(*args), "float32").ok
+
+
+def test_deterministic_promotion_on_card(cuda_device, tmp_path):
+    from repro_torch.examples.tune_microhh import launch_args
+    from repro_torch.online.promotion import PromotionPipeline
+
+    args = launch_args("diff_uvw", (64, 64, 64), "float32", cuda_device)
+    k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=tmp_path,
+                     device_kind="gpu-h100")
+    k(*args, config=K2B_LDG)
+    pipe = PromotionPipeline(k)
+    promo = pipe.promote("gpu-h100", (64, 64, 64), "float32", K2B_TILE,
+                         score_us=80.0, incumbent_score_us=100.0,
+                         n_measurements=3, evals=2, objective="wallclock",
+                         meta=args_meta(*args))
+    assert promo is not None and promo.record.oracle_verified()
+    out = k(*args)
+    st = k.stats[-1]
+    assert st.tier == "exact" and st.config == K2B_TILE
+    assert st.cached and st.compile_s == 0.0
+    assert verify_outcome(out, ref.diff_uvw_ref(*args), "float32").ok
+
+
+def test_spawned_sandbox_with_cuda_in_the_child(cuda_device):
+    """Each fault mode in a child holding a CUDA context gives its status
+    (a device allocation bomb: oom under the memory fraction); a child
+    that loses its context to a device-side assertion is a crash; this
+    process launches K1 afterwards."""
+    import functools
+
+    from repro_torch.sandbox import (SandboxSettings, device_assert,
+                                     sandboxed_call)
+    from repro_torch.sandbox.demo import EXPECTED_VERDICTS, run_fault_modes
+
+    def settings(mode):
+        return SandboxSettings(timeout_s=5.0 if mode == "hang" else 120.0,
+                               device_memory_fraction=0.02)
+
+    runs = run_fault_modes(EXPECTED_VERDICTS, settings, device="cuda")
+    for mode, want in EXPECTED_VERDICTS.items():
+        result, verdict = runs[mode]
+        assert verdict.status == want, (mode, verdict.detail, verdict.stderr)
+        assert result.feasible == (mode == "none")
+    assert runs["segv"][1].exit_cause == "signal:11"
+    lost, _ = sandboxed_call(functools.partial(device_assert, "cuda"),
+                             settings("assert"))
+    assert lost.status == "crash" and "CUDA" in lost.detail
+    args = [a.to(cuda_device)
+            for a in get_kernel("advec_u").make_probe_args((24, 40, 136),
+                                                          "float32")]
+    got = advec_u.launch(K1_TILE, *args)
+    assert verify_outcome(got, ref.advec_u_ref(*args), "float32").ok

@@ -127,11 +127,21 @@ def test_tune_cli_replays_port_captures(tmp_path, monkeypatch, capsys):
     assert k.last_tier == "exact"
 
 
-def test_costmodel_objective_is_not_ported():
+def test_costmodel_objective_is_not_ported(tmp_path):
+    """The cost-model objective (the name is from before it was ported)
+    scores configs without launching them, checks each once on the given
+    tensors, and records its winner."""
     b = pc.get_kernel("matmul")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tune_kernel(b, (32, 16, 64), "float32", "cpu",
-                    objective="costmodel", device="cpu")
+    args = b.make_probe_args((32, 16, 64), "float32")
+    res = tune_kernel(b, (32, 16, 64), "float32", "cpu",
+                      objective="costmodel", device="cpu", max_evals=5,
+                      verify_args=args, wisdom_dir=tmp_path)
+    assert res.best_config is not None and len(res.evaluations) == 5
+    rec = pc.Wisdom.load("matmul", tmp_path).records[0]
+    assert rec.provenance["objective"] == "costmodel"
+    with pytest.raises(ValueError, match="objective"):
+        tune_kernel(b, (32, 16, 64), "float32", "cpu", objective="guess",
+                    device="cpu")
 
 
 def test_evaluator_marks_build_failures_and_wrong_outputs_infeasible(

@@ -21,7 +21,10 @@ goes to FILE (default chiprun_out/stencil_sweep.jsonl); standard output
 gets, for each (kernel, grid, dtype), the best config of each body beside
 the bound, each tile block's time at each strip, and last a JSON count of
 the (kernel, grid, dtype, block, blocks an SM) cases each strip wins or
-comes within 2 % of. Builds every library first (one nvcc each, all
+comes within 2 % of, then Spearman's rank correlation between the cost
+model's times (``chip_smoke.model_us``: as the online tuner's screening
+scores them, and without the hashed noise) and these, for each (kernel,
+grid, dtype) and each body. Builds every library first (one nvcc each, all
 started together; K2a's tile configs share K2b's libraries). Needs the
 card.
 """
@@ -178,6 +181,24 @@ def main() -> int:
                   + ", ".join(f"{r['config']['strip_z']} {r['ms']:.4f}"
                               for r in blk))
     print("strip_wins " + json.dumps({"fastest": wins, "within_2pct": near}))
+    rho = {}
+    for (name, dtype), g in itertools.product(
+            itertools.product(KERNELS, cs.DTYPES), GRIDS):
+        case = [r for r in rows if (r["kernel"], r["grid"], r["dtype"])
+                == (name, g, dtype)]
+        for body in ("all", "tile", "ldg"):
+            mine = [r for r in case if body in ("all", r["body"])]
+            if len(mine) < 3 or (body == "all" and len(
+                    {r["body"] for r in mine}) < 2):
+                continue
+            model = [cs.model_us(name, (g,) * 3, dtype, r["config"])
+                     for r in mine]
+            ms = [r["ms"] for r in mine]
+            rho[f"{name} {g}^3 {dtype} {body}"] = {
+                "n": len(mine),
+                "rho": cs.spearman([m[0] for m in model], ms),
+                "rho_noise_free": cs.spearman([m[1] for m in model], ms)}
+    print("spearman cost model vs sweep " + json.dumps(rho))
     return 0
 
 
