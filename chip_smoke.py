@@ -89,7 +89,29 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    gives its status, a child that loses its context to a device-side
    assertion is a crash, a child builds and times K1, and this process
    launches K1 afterwards; (5) Spearman's rank correlation between the
-   cost model and phase 6's stencil times at 512^3.
+   cost model and phase 6's stencil times at 512^3;
+9. recorded spaces and transfer: (1) matmul (512, 512, 1024) float32 over
+   all 216 configs and (2) causal flash attention at the LM slice's shape
+   in bfloat16 over its 15 configs, each recorded by
+   ``record_space(objective="wallclock")`` on the card (every config
+   checked against its plain version, its first launch unscored, the best
+   of 5 after L2 flushes), with entries, feasible count, best and default
+   times and Spearman's rank correlation against phase 6's sweep of the
+   same configs; (3) the nvcc runs while recording, which must be 0
+   (phase 1 builds every config); (4) each recording replayed on the
+   host: ``tunebench.compare`` over every strategy, twice, byte-identical,
+   each strategy's fraction of optimum at the default budget and the
+   ``--check`` verdict, ``fit_from_dataset`` quality with and without
+   profile features, ``rerank_gate`` and ``classify_dataset``; (5) the
+   same scenarios recorded by the cost model on gpu-a100 and gpu-a4000,
+   transferred onto the card's kind and scored by ``holdout_report``
+   against the card's recording (confidence, components, transfer,
+   fallback and default tiers and fractions, and the fraction the
+   top-ranked prediction reaches); (6) the write paths:
+   ``tune_kernel(record_dataset=)`` on the quickstart scenario,
+   ``SandboxedEvaluator(record_to=)`` with CUDA children, and ``transfer
+   predict`` into a ``WisdomStore`` whose ``select`` on the card's
+   scenario serves tier transfer only above the confidence gate.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -132,7 +154,9 @@ from repro_torch.core.export import (StaticKernel, export_header,  # noqa: E402
 from repro_torch.core.builder import args_meta  # noqa: E402
 from repro_torch.core.registry import register, unregister  # noqa: E402
 from repro_torch.core.scenario import MISS_TIERS, format_key  # noqa: E402
-from repro_torch.core.wisdom import WISDOM_DIR_ENV  # noqa: E402
+from repro_torch.core.wisdom import (TRANSFER_MIN_CONFIDENCE,  # noqa: E402
+                                     WISDOM_DIR_ENV, Wisdom)
+from repro_torch.distrib import WisdomStore  # noqa: E402
 from repro_torch.examples import quickstart, tune_microhh  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
@@ -142,17 +166,27 @@ from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
 from repro_torch.online import enable_online_tuning  # noqa: E402
 from repro_torch.online.promotion import PromotionPipeline  # noqa: E402
-from repro_torch.prof import (PROF_ENV, process_profiler,  # noqa: E402
-                              profile_from_workload, reset_process_profiler)
+from repro_torch.prof import (DEFAULT_TRAIN_EVERY, PROF_ENV,  # noqa: E402
+                              classify_dataset, process_profiler,
+                              profile_from_workload, rerank_gate,
+                              reset_process_profiler, surrogate_rerank)
 from repro_torch.sandbox import (FAULT_PARAM, KernelTrial,  # noqa: E402
-                                 OracleGate, SandboxSettings,
+                                 OracleGate, SandboxedEvaluator,
+                                 SandboxSettings,
                                  clear_verdict_cache, device_assert,
                                  make_faulty_kernel, sandboxed_call)
 from repro_torch.sandbox.demo import (EXPECTED_VERDICTS,  # noqa: E402
                                       run_fault_modes)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.transfer import (fraction_of_optimum,  # noqa: E402
+                                  holdout_report, transfer_scenario)
+from repro_torch.transfer.cli import main as transfer_cli  # noqa: E402
+from repro_torch.transfer.score import _measured_record  # noqa: E402
+from repro_torch.tunebench import (DatasetStore, SpaceDataset,  # noqa: E402
+                                   dump_report, record_space)
+from repro_torch.tunebench import compare as compare_strategies  # noqa: E402
 from repro_torch.tuner import (CostModel, CostModelEvaluator,  # noqa: E402
-                               tune_capture)
+                               fit_from_dataset, tune_capture, tune_kernel)
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
@@ -456,6 +490,9 @@ LIBRARY = {"matmul": library_call, "flash_attention_causal": sdpa_call}
 #: Every (CUDA kernel, shape, dtype, config, ms) phase 6 times: phase 8
 #: ranks the stencils' against the cost model.
 TIMED: list[tuple[str, tuple, str, dict, float]] = []
+#: Phase 6's whole-space sweeps, builder -> [(config, ms)]: phase 9 ranks
+#: its recordings against them.
+SWEEPS: dict[str, list[tuple[dict, float]]] = {}
 
 
 def timing_row(name: str, shape, dtype: str, configs: dict, args) -> dict:
@@ -1217,6 +1254,7 @@ def matmul_sweep(args, tuned: dict) -> None:
     space = get_kernel("matmul").space
     sweep = sorted(((c, time_ms(calls("matmul", c, args)[0], reps=5))
                     for c in space.enumerate()), key=lambda x: x[1])
+    SWEEPS["matmul"] = sweep
     print("sweep matmul float32 " + json.dumps(
         [[c["block_m"], c["block_n"], c["block_k"], c["stages"],
           c["split_k"], c["grid_order"], round(ms, 4)] for c, ms in sweep])
@@ -1248,6 +1286,7 @@ def phase_lm_times(lm: dict) -> dict:
                            reps=5))
              for cfg in get_kernel("flash_attention_causal").space.enumerate()]
     sweep.sort(key=lambda x: x[1])
+    SWEEPS["flash_attention_causal"] = sweep
     print("sweep flash_attention_causal " + json.dumps(
         [[c["block_q"], c["block_k"], c["threads"], fa_body(c, "bfloat16"),
           round(ms, 4)] for c, ms in sweep])
@@ -1576,6 +1615,233 @@ def phase_online(wisdom: Path, tmp: Path) -> dict:
     return out
 
 
+# --------------------------------------- recorded spaces and transfer (9)
+
+#: The device kinds phase 9 transfers from onto the card's, each space
+#: recorded there by the cost model (host-side, deterministic).
+TRANSFER_SOURCES = ("gpu-a100", "gpu-a4000")
+
+
+def lm_flash_shape() -> tuple[int, int, int, int]:
+    """(B*H, B*Hkv, S, D) of the LM slice's prefill attention."""
+    cfg = get_arch(LM_ARCH)
+    return (LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads, LM_SEQ,
+            cfg.d_head)
+
+
+def record_on_card(name: str, problem, dtype: str) -> SpaceDataset:
+    """Phase 9 items 1-2: every config of ``name``'s space at ``problem``
+    by wall clock on the card (each config checked against the plain
+    version, its first launch unscored, the best of 5 after L2 flushes),
+    ranked against phase 6's sweep of the same configs."""
+    builder = get_kernel(name)
+    t = time.perf_counter()
+    ds = record_space(builder, problem, dtype, current_device_kind(),
+                      objective="wallclock")
+    secs = time.perf_counter() - t
+    n_valid = builder.space.valid_cardinality()
+    check(len(ds) == n_valid and ds.objective == "wallclock",
+          f"record {name}: {len(ds)} entries of {n_valid} configs")
+    feas = ds.feasible()
+    check(feas and all(e.score_us > 0 and e.profile for e in feas),
+          f"record {name}: feasible entries without a time or a profile")
+    best = ds.best()
+    default = ds.lookup(builder.default_config())
+    sweep = {json.dumps(c, sort_keys=True): ms
+             for c, ms in SWEEPS[name]}
+    pairs = [(e.score_us, sweep[json.dumps(e.config, sort_keys=True)])
+             for e in feas]
+    rho = spearman([a for a, _ in pairs], [b for _, b in pairs])
+    res = {"kernel": name, "problem": list(problem), "dtype": dtype,
+           "entries": len(ds), "feasible": len(feas),
+           "best": best.config, "best_us": best.score_us,
+           "default_us": default.score_us if default.feasible else None,
+           "spearman_vs_phase6_sweep": rho, "n_ranked": len(pairs),
+           "seconds": secs}
+    print("record " + json.dumps(res), flush=True)
+    if name.startswith("flash"):
+        for e in sorted(feas, key=lambda e: e.score_us):
+            print(f"record {name} {json.dumps(e.config)} body="
+                  f"{fa_body(e.config, dtype)} {e.score_us:.3f}us",
+                  flush=True)
+    else:
+        print(f"record {name} " + json.dumps(
+            [[e.config[k] for k in builder.space.names]
+             + [round(e.score_us, 3)]
+             for e in sorted(feas, key=lambda e: e.score_us)])
+              + f" ({list(builder.space.names)} + [us])", flush=True)
+    return ds
+
+
+def replay(ds: SpaceDataset) -> dict:
+    """Phase 9 item 4: the recording replayed on the host: every strategy
+    (seeded, twice: byte-identical reports), the fitted surrogate with and
+    without profile features, the re-rank gate and the class."""
+    reports = [dump_report(compare_strategies([ds])) for _ in range(2)]
+    check(reports[0] == reports[1],
+          f"compare over {ds.name()}: two runs differ")
+    rep = json.loads(reports[0])
+    out = {"dataset": ds.name(), "budget": rep["budget"],
+           "seeds": rep["seeds"], "check": "PASS" if rep["pass"] else "FAIL",
+           "final_fraction": {}, "threshold": {}}
+    for s in rep["datasets"][0]["strategies"]:
+        out["final_fraction"][s["strategy"]] = s["final_fraction"]
+        out["threshold"][s["strategy"]] = s["threshold"]
+    out["fit_quality"] = fit_from_dataset(ds).fit_quality()
+    out["fit_quality_profile"] = fit_from_dataset(
+        ds, profile_features=True).fit_quality()
+    train = len(ds.feasible()[::DEFAULT_TRAIN_EVERY])
+    if train >= 3:
+        r = surrogate_rerank(ds)
+        out["rerank"] = {row["surrogate"]: row["fraction_at"]
+                         for row in r["surrogates"]}
+        out["rerank_gate"] = rerank_gate(r) or "PASS"
+    else:
+        out["rerank"] = (f"not run: every {DEFAULT_TRAIN_EVERY}th of "
+                         f"{len(ds.feasible())} feasible entries gives "
+                         f"{train} to train on, the fit needs 3")
+    c = classify_dataset(ds)
+    out["class"] = {k: c[k] for k in ("bottleneck", "best_us",
+                                      "best_roofline_fraction",
+                                      "distribution")}
+    print("replay " + json.dumps(out), flush=True)
+    return out
+
+
+def transfer_onto_card(truth: SpaceDataset, store: DatasetStore) -> dict:
+    """Phase 9 item 5: the same scenario recorded by the cost model on
+    each source kind, transferred onto the card's kind and scored against
+    the card's recording; with the fraction the top-ranked prediction
+    would reach if the serving gate let it through."""
+    builder = get_kernel(truth.kernel)
+    out = {}
+    for src in TRANSFER_SOURCES:
+        source = record_space(builder, truth.problem_size, truth.dtype, src)
+        store.save(source)
+        rep = holdout_report(source, truth)
+        result = transfer_scenario(source, truth.device_kind)
+        top = result.best()
+        row = {"confidence": rep["confidence"],
+               "components": rep["components"],
+               "transfer": [rep["transfer"]["tier"],
+                            rep["transfer"]["fraction"]],
+               "fallback": [rep["fallback"]["tier"],
+                            rep["fallback"]["fraction"]],
+               "default": rep["default"]["fraction"],
+               "top_prediction": top.config if top else None,
+               "top_prediction_fraction": (
+                   fraction_of_optimum(truth, top.config) if top else None),
+               "gate": TRANSFER_MIN_CONFIDENCE}
+        check(0 < rep["components"]["similarity"] <= 1,
+              f"transfer {src}: similarity {rep['components']['similarity']}")
+        print(f"transfer {truth.kernel} {src} -> {truth.device_kind} "
+              + json.dumps(row), flush=True)
+        out[src] = row
+    return out
+
+
+def write_paths(tmp: Path, store: DatasetStore) -> dict:
+    """Phase 9 item 6: tune_kernel's dataset, a CUDA child's recorded
+    entries, and ``transfer predict`` writing through a WisdomStore."""
+    res = {}
+    # (a) the quickstart scenario tuned with record_dataset=
+    builder = get_kernel("matmul")
+    t = tune_kernel(builder, QS_MATMUL, "float32", current_device_kind(),
+                    strategy="random", max_evals=8, time_budget_s=None,
+                    wisdom_dir=tmp / "w9", record_dataset=tmp / "ds9")
+    ds = DatasetStore(tmp / "ds9").load_for(
+        "matmul", current_device_kind(), QS_MATMUL, "float32")
+    want = {ds.key_for(e.config) for e in t.evaluations}
+    check(ds is not None and set(ds.evaluations) == want
+          and all(ds.lookup(e.config).score_us == e.score_us
+                  for e in t.evaluations if e.feasible),
+          "tune_kernel(record_dataset=): entries are not the session's")
+    res["tune_record_dataset"] = {"evaluations": len(t.evaluations),
+                                  "entries": len(ds)}
+    # (b) SandboxedEvaluator(record_to=) with CUDA children
+    rec = SpaceDataset("matmul", builder.space, QS_MATMUL, "float32",
+                       current_device_kind(), objective="wallclock")
+    ev = SandboxedEvaluator(KernelTrial("matmul", QS_MATMUL, "float32"),
+                            SandboxSettings(
+                                timeout_s=CHILD_TIMEOUT_S,
+                                device_memory_fraction=CHILD_DEVICE_FRACTION),
+                            record_to=rec)
+    cfgs = [builder.default_config()]
+    cfgs.append(next(c for c, _ in SWEEPS["matmul"] if c != cfgs[0]))
+    with ThreadPoolExecutor(max_workers=len(cfgs)) as pool:
+        results = list(pool.map(ev, cfgs))
+    check(all(r.feasible and r.verified for r in results)
+          and len(rec) == len(cfgs)
+          and all(rec.lookup(c).feasible and not rec.lookup(c).verdict
+                  for c in cfgs),
+          f"SandboxedEvaluator(record_to=): {results} {rec.to_doc()}")
+    res["sandbox_record_to"] = {
+        "entries": len(rec),
+        "us": [rec.lookup(c).score_us for c in cfgs],
+        "verdicts": [v.status for _, v in ev.verdicts]}
+    # (c) transfer predict into a WisdomStore beside the source's measured
+    # record; the store's select on the card's scenario
+    src = store.path_for("matmul", TRANSFER_SOURCES[0], QS_MATMUL, "float32")
+    wdir = tmp / "w9t"
+    source = SpaceDataset.load(src)
+    WisdomStore(wdir).save(Wisdom("matmul", [_measured_record(source)]))
+    kind = current_device_kind()
+    rc = transfer_cli(["predict", "--datasets", str(src), "--target", kind,
+                       "--wisdom-dir", str(wdir)])
+    wisdom = WisdomStore(wdir).load("matmul")
+    _, tier = wisdom.select(kind, QS_MATMUL, "float32",
+                            builder.default_config())
+    eligible = transfer_scenario(source, kind).eligible()
+    check((rc == 0) == eligible and
+          (tier == "transfer") == eligible,
+          f"transfer predict rc {rc}, tier {tier}, eligible {eligible}")
+    # the write path with the gate lowered to 0: a transferred record is
+    # checked on the card, merged, and served only below the default gate
+    rc0 = transfer_cli(["predict", "--datasets", str(src), "--target", kind,
+                        "--wisdom-dir", str(wdir), "--min-confidence", "0"])
+    wisdom = WisdomStore(wdir).load("matmul")
+    moved = [r for r in wisdom.records if r.is_transferred()]
+    _, tier_default = wisdom.select(kind, QS_MATMUL, "float32",
+                                    builder.default_config())
+    _, tier_zero = wisdom.select(kind, QS_MATMUL, "float32",
+                                 builder.default_config(),
+                                 min_transfer_confidence=0.0)
+    check(rc0 == 0 and len(moved) == 1 and moved[0].oracle_verified()
+          and tier_zero == "transfer"
+          and (tier_default == "transfer") == eligible,
+          f"transfer predict --min-confidence 0: rc {rc0}, {len(moved)} "
+          f"transferred, tiers {tier_default}/{tier_zero}")
+    res["transfer_predict"] = {
+        "rc": rc, "eligible": eligible, "tier": tier,
+        "forced_record_confidence": moved[0].transfer_confidence(),
+        "tier_after_forced": tier_default, "tier_gate_0": tier_zero}
+    print("write paths " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_recorded(tmp: Path) -> dict:
+    """Phase 9: recorded spaces on the card and transfer onto it."""
+    t9 = time.perf_counter()
+    runs0 = _build.NVCC_RUNS
+    store = DatasetStore(tmp / "datasets")
+    mm = record_on_card("matmul", QS_MATMUL, "float32")
+    fa = record_on_card("flash_attention_causal", lm_flash_shape(),
+                        "bfloat16")
+    builds = _build.NVCC_RUNS - runs0
+    print(f"phase 9 nvcc runs while recording: {builds}", flush=True)
+    check(builds == 0, f"phase 9 built {builds} libraries: phase 1 must "
+          f"build every config the recordings launch")
+    out = {"builds": builds}
+    for ds in (mm, fa):
+        store.save(ds)
+        out[ds.kernel] = {"replay": replay(ds),
+                          "transfer": transfer_onto_card(ds, store)}
+    out["write_paths"] = write_paths(tmp, store)
+    out["seconds"] = time.perf_counter() - t9
+    print(f"phase 9 (recorded spaces and transfer) took "
+          f"{out['seconds']:.1f}s", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1624,6 +1890,7 @@ def main() -> int:
               f"profiles, export) took {time.perf_counter() - t7:.1f}s",
               flush=True)
         phase_online(wisdom / "microhh", Path(tmp))
+        phase_recorded(Path(tmp))
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

@@ -18,13 +18,15 @@ from .capture import (Capture, capture_dir, capture_requested, list_captures,
                       load_capture, to_numpy, to_torch, write_capture,
                       CAPTURE_ENV)
 from .compile_cache import CompileCache, LaunchStats
-from .device import (DEVICES, DeviceSpec, current_device, current_device_kind,
-                     get_device, resolve_device, GPU_H100, DEVICE_ENV)
+from .device import (CAPABILITY_AXES, DEVICES, DeviceSpec, capability_vector,
+                     current_device, current_device_kind, get_device,
+                     resolve_device, GPU_H100, DEVICE_ENV)
 from .param import Config, ConfigSpace, TunableParam
 from .registry import (all_kernels, get_kernel, load_builtin_kernels,
                        register, unregister)
 from .wisdom import (Wisdom, WisdomIndex, WisdomRecord, WisdomVersionError,
-                     WISDOM_VERSION, make_provenance, default_wisdom_dir,
+                     WISDOM_VERSION, make_provenance,
+                     make_transfer_provenance, default_wisdom_dir,
                      merge_lineage, migrate_doc, doc_version)
 from .wisdom_kernel import WisdomKernel
 from .workload import Workload
@@ -35,14 +37,16 @@ __all__ = [
     "Capture", "capture_dir", "capture_requested", "list_captures",
     "load_capture", "to_numpy", "to_torch", "write_capture", "CAPTURE_ENV",
     "CompileCache", "LaunchStats",
-    "DEVICES", "DeviceSpec", "current_device", "current_device_kind",
+    "CAPABILITY_AXES", "DEVICES", "DeviceSpec", "capability_vector",
+    "current_device", "current_device_kind",
     "get_device", "resolve_device", "GPU_H100", "DEVICE_ENV",
     "Config", "ConfigSpace", "TunableParam",
     "all_kernels", "get_kernel", "load_builtin_kernels", "register",
     "unregister",
     "Wisdom", "WisdomIndex", "WisdomRecord", "WisdomVersionError",
     "WISDOM_VERSION",
-    "make_provenance", "default_wisdom_dir", "merge_lineage", "migrate_doc",
+    "make_provenance", "make_transfer_provenance", "default_wisdom_dir",
+    "merge_lineage", "migrate_doc",
     "doc_version",
     "WisdomKernel",
     "Workload",

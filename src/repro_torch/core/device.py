@@ -145,6 +145,24 @@ def get_device(kind: str) -> DeviceSpec:
                    kind=kind, family=family, estimated=True)
 
 
+#: Capability-vector axes, in order (see :func:`capability_vector`).
+CAPABILITY_AXES = ("flops_bf16", "flops_f32", "hbm_bw", "vmem_bytes",
+                   "program_overhead")
+
+
+def capability_vector(spec: DeviceSpec) -> tuple[float, ...]:
+    """The numeric capabilities that govern cross-device transfer, as a
+    plain tuple in ``CAPABILITY_AXES`` order: compute throughput (both
+    precisions), memory bandwidth, on-chip memory capacity and per-program
+    launch overhead. ``repro_torch.transfer.DeviceModel`` works on ratios
+    of these vectors, so the units never matter. An axis a spec holds at
+    0 was not measured for that part (``GPU_H100.program_overhead``); the
+    transfer model leaves such an axis out. ``backend`` and ``estimated``
+    are not axes: they enter the model as a penalty and a cap."""
+    return (spec.flops_bf16, spec.flops_f32, spec.hbm_bw,
+            float(spec.vmem_bytes), spec.program_overhead)
+
+
 _TPU_KIND_TABLE: tuple[tuple[str, str], ...] = (
     ("v5e", "tpu-v5e"),
     ("v5 lite", "tpu-v5e"),

@@ -116,6 +116,37 @@ def make_provenance(strategy: str = "", evals: int = 0,
     }
 
 
+def make_transfer_provenance(source_device: str, source_entries: int,
+                             confidence: float, predicted_us: float,
+                             predictor: str = "ridge+capability",
+                             round_: int = 0,
+                             backends: str = "") -> dict:
+    """Provenance for a cross-device *transferred* record
+    (``repro_torch.transfer``).
+
+    Deterministic: no timestamp, host or user, so any host transferring the
+    same recorded space to the same target writes the same record.
+    ``confidence`` is the gate ``Wisdom.select_record`` applies before
+    serving the prediction; ``predicted_us`` what observed latency is later
+    held to. ``backends`` (e.g. ``"tpu->gpu"``) marks a cross-backend
+    prediction and is absent for same-backend transfers. The reference
+    records ``jax_version`` where the port records ``torch_version``.
+    """
+    prov = {
+        "source": "transfer",
+        "source_device": source_device,
+        "source_entries": int(source_entries),
+        "confidence": round(float(confidence), 6),
+        "predicted_us": round(float(predicted_us), 6),
+        "predictor": predictor,
+        "round": int(round_),
+        "torch_version": torch.__version__,
+    }
+    if backends:
+        prov["backends"] = backends
+    return prov
+
+
 def merge_lineage(*records: "WisdomRecord", extra: Sequence[dict] = ()
                   ) -> list[dict]:
     """Combine the provenance history of ``records`` into one lineage list.

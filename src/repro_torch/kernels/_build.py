@@ -89,7 +89,14 @@ def nvcc_command(source: str, defines: Defines, out: Path) -> list[str]:
             "-o", str(out), str(CSRC / source)]
 
 
+#: nvcc processes this process has started (every build, serial or in
+#: parallel): a caller reads it before and after a phase to count builds.
+NVCC_RUNS = 0
+
+
 def _start(source: str, defines: Defines) -> tuple[Path, Path, subprocess.Popen]:
+    global NVCC_RUNS
+    NVCC_RUNS += 1
     out = library_path(source, defines)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")

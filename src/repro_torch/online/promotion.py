@@ -26,8 +26,8 @@ measurements), and if so:
 
 The ``broadcast`` hook (any ``broadcast(kernel_name, record)`` object or a
 bare callable) is accepted as in the reference; its fleet implementation,
-``repro.distrib``, is not ported (ROADMAP.md queue 1 item 13), so it stays
-None in the port.
+``repro.distrib.sync``, is not ported (ROADMAP.md queue 1 item 13), so it
+stays None in the port.
 """
 
 from __future__ import annotations

@@ -11,16 +11,19 @@ the wisdom-recorded baseline. The :class:`Profiler` samples the launch
 path (``WisdomKernel``, ``ServeEngine`` decode steps), runs always-on in
 tuner evaluations (``EvalResult.info["profile"]``), and fans every profile
 out to ``prof.*`` metrics and Chrome counter events.
+:func:`surrogate_rerank` closes the loop: the recorded counters become
+regression features for the tuner's surrogate
+(``fit_from_dataset(profile_features=True)``), and :func:`rerank_gate`
+checks that the profile-guided surrogate finds near-optimal configs from
+fewer evaluations; :func:`render_attribution` reports recorded spaces by
+bottleneck.
 
 ``python -m repro_torch.prof`` exposes profile/report/roofline/diff/demo;
 ``KERNEL_LAUNCHER_PROF=N`` attaches a process-wide profiler ambiently.
-
-Not ported yet: profile-guided tuning (the reference's ``guided.py``,
-which needs the fitted cost model, ROADMAP.md queue 1 item 5) and the
-attribution report over recorded tuning spaces (``repro.tunebench``,
-item 13); :func:`classify_dataset` and :func:`render_attribution` raise.
 """
 
+from .guided import (DEFAULT_BUDGETS, DEFAULT_TRAIN_EVERY, rerank_gate,
+                     surrogate_rerank)
 from .profile import (BOTTLENECKS, DRIFT_THRESHOLD, PROFILE_FEATURES,
                       PROFILE_VERSION, KernelProfile, ProfileVersionError,
                       classify_bottleneck, profile_feature_vector,
@@ -33,7 +36,9 @@ from .report import classify_dataset, render_attribution, render_profiles
 
 __all__ = [
     "BOTTLENECKS",
+    "DEFAULT_BUDGETS",
     "DEFAULT_SAMPLE_EVERY",
+    "DEFAULT_TRAIN_EVERY",
     "DRIFT_THRESHOLD",
     "KernelProfile",
     "PROF_ENV",
@@ -53,6 +58,8 @@ __all__ = [
     "render_attribution",
     "render_profiles",
     "reset_process_profiler",
+    "rerank_gate",
     "save_profiles",
     "summarize",
+    "surrogate_rerank",
 ]

@@ -7,21 +7,20 @@ Operator entry points over kernel profiles (port of ``repro.prof.cli``):
   latency is ``--latency-us`` when given; otherwise the config is built and
   launched once on the card and timed with CUDA events (the port has no
   cost model to simulate it), which raises on a host without a card;
-* ``report``   — summarize saved profile documents (byte-deterministic);
+* ``report``   — render the bottleneck-attribution report from recorded
+  tuning-space datasets (read only) and/or saved profile documents
+  (byte-deterministic);
 * ``roofline`` — print a device's roofline (peaks, ridge points) and,
   given a scenario, where its config sits;
 * ``diff``     — compare two saved profile documents (latency deltas,
   bottleneck changes);
 * ``demo``     — run the instrumented demo and write every artifact.
-
-``report --datasets`` and ``demo --datasets`` read recorded tuning spaces,
-which need ``repro.tunebench``: not ported yet (ROADMAP.md queue 1 item
-13), so both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob as _glob
 import json
 import sys
 
@@ -49,6 +48,12 @@ def _parse_config(raw: str | None) -> dict | None:
 
 def _problem(raw: str) -> tuple[int, ...]:
     return tuple(int(x) for x in raw.split(",") if x)
+
+
+def _load_datasets(pattern: str):
+    from repro_torch.tunebench.dataset import SpaceDataset
+    paths = sorted(_glob.glob(pattern))
+    return [SpaceDataset.load(p) for p in paths]
 
 
 def _measure_us(builder, config: dict, problem: tuple[int, ...],
@@ -98,12 +103,17 @@ def _cmd_profile(args) -> int:
 
 
 def _cmd_report(args) -> int:
-    if args.datasets:
-        render_attribution(args.datasets)   # raises: not ported yet
+    datasets = _load_datasets(args.datasets) if args.datasets else []
     profiles = []
     for path in args.profiles:
         profiles.extend(load_profiles(path))
-    text = render_profiles(profiles)
+    parts = []
+    if profiles:
+        parts.append(render_profiles(profiles))
+    if datasets or not profiles:
+        parts.append(render_attribution(datasets,
+                                        rerank=not args.no_rerank))
+    text = "\n".join(parts)
     sys.stdout.write(text)
     if args.out:
         with open(args.out, "w") as f:
@@ -180,8 +190,8 @@ def _cmd_diff(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.prof",
-        description="kernel profiles: roofline counters and bottleneck "
-                    "attribution")
+        description="kernel profiles: roofline counters, bottleneck "
+                    "attribution, profile-guided tuning")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("profile", help="profile one kernel scenario")
@@ -199,12 +209,17 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--out", help="also write the profile JSON here")
 
     p = sub.add_parser("report",
-                       help="launch-profile report (byte-deterministic)")
+                       help="bottleneck-attribution report "
+                            "(byte-deterministic)")
     p.add_argument("--datasets",
-                   help="recorded tuning-space glob (not ported yet)")
+                   default="benchmarks/datasets/*.space.json",
+                   help="recorded tuning-space glob, read only (default: "
+                        "the shipped spaces)")
     p.add_argument("--profiles", nargs="*", default=[],
                    help="saved .prof.json documents to summarize")
     p.add_argument("--out", help="also write the report to this path")
+    p.add_argument("--no-rerank", action="store_true",
+                   help="skip the surrogate comparison section")
 
     p = sub.add_parser("roofline", help="device roofline + ridge points")
     p.add_argument("--device", default="gpu-h100")
@@ -230,7 +245,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="torch device the launches run on (default cuda; "
                         "cpu runs the plain versions)")
     p.add_argument("--datasets",
-                   help="recorded tuning-space glob (not ported yet)")
+                   default="benchmarks/datasets/*.space.json")
 
     args = ap.parse_args(argv)
 

@@ -6,11 +6,8 @@ advec_u stencil) on ``device`` — the card by default, ``"cpu"`` for the
 plain versions — injects one artificially slow launch so drift detection
 fires, and writes every artifact the profiler can produce: the profile
 document, a Chrome trace with counter events, a metrics snapshot, and the
-launch-profile report.
-
-Port of ``repro.prof.demo``. Its dataset half (the attribution report over
-recorded tuning spaces) needs ``repro.tunebench``, which is not ported yet
-(ROADMAP.md queue 1 item 13): ``dataset_glob`` raises.
+report: the launch profiles, then the attribution report over recorded
+tuning spaces (read only). Port of ``repro.prof.demo``.
 """
 
 from __future__ import annotations
@@ -30,7 +27,8 @@ from .report import render_attribution, render_profiles
 
 def run_demo(out_dir: str | Path = "prof-demo",
              device: str | torch.device = "cuda",
-             dataset_glob: str | None = None) -> dict:
+             dataset_glob: str = "benchmarks/datasets/*.space.json"
+             ) -> dict:
     """Run the instrumented profiler demo; returns artifact paths plus
     the rendered report text.
 
@@ -39,13 +37,14 @@ def run_demo(out_dir: str | Path = "prof-demo",
         art = run_demo("/tmp/prof-demo", device="cpu")
         print(art["report"])
     """
+    import glob as _glob
+
     from repro_torch.core.device import current_device_kind, resolve_device
     from repro_torch.core.registry import get_kernel
     from repro_torch.core.wisdom_kernel import WisdomKernel
     from repro_torch.kernels.ops import pack_scalars
+    from repro_torch.tunebench.dataset import SpaceDataset
 
-    if dataset_glob is not None:
-        render_attribution(dataset_glob)    # raises: not ported yet
     dev = resolve_device(device)
     kind = current_device_kind(dev)
     out = Path(out_dir)
@@ -91,7 +90,10 @@ def run_demo(out_dir: str | Path = "prof-demo",
         raise AssertionError(f"demo trace invalid: {errors[:3]}")
     snap_path = save_snapshot(registry.snapshot(), out / "snapshot.json")
 
-    report = render_profiles(profiler.profiles)
+    datasets = [SpaceDataset.load(p)
+                for p in sorted(_glob.glob(dataset_glob))]
+    report = (render_profiles(profiler.profiles)
+              + "\n" + render_attribution(datasets))
     report_path = out / "report.txt"
     report_path.write_text(report)
     return {

@@ -6,9 +6,10 @@ Port of ``repro.sandbox.cli``. Subcommands:
             version on the device (``--kernel/--problem/--dtype/--set``;
             the card unless ``--device cpu``), or — with ``--demo`` — run
             the injected-fault gauntlet (hang/crash/oom/wrong-output
-            candidates through the spawned sandbox, the oracle and the
-            online promotion path) and fail unless zero bad promotions
-            happened. ``--out`` writes the verdict report as JSON.
+            candidates through the spawned sandbox, the oracle, the
+            online promotion path and a transfer's records) and fail
+            unless zero bad promotions happened. ``--out`` writes the
+            verdict report as JSON.
 
 Examples::
 
@@ -16,9 +17,9 @@ Examples::
         --problem 64,64,64 --dtype float32 --set body=tile
     python -m repro_torch.sandbox check --demo --device cpu
 
-``--fleet`` and ``--transfer`` ask for the reference demo's legs that need
-``fleet/`` and ``transfer/``; they raise ``NotImplementedError`` until
-those are ported (ROADMAP.md queue 1 item 13).
+``--fleet`` asks for the reference demo's leg that needs ``fleet/``; it
+raises ``NotImplementedError`` until that is ported (ROADMAP.md queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -82,8 +83,7 @@ def _cmd_check(args) -> int:
             return 2
         return _cmd_check_one(args)
     report = run_demo(timeout_s=args.timeout, memory_mb=args.memory_mb,
-                      device=args.device, fleet=args.fleet,
-                      transfer=args.transfer)
+                      device=args.device, fleet=args.fleet)
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=2,
                                              sort_keys=True) + "\n")
@@ -116,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--demo", action="store_true",
                    help="run the injected-fault gauntlet (hang, crash, "
                         "oom, wrong output) through the sandbox, the "
-                        "oracle and the online promotion path")
+                        "oracle, the online promotion path and a "
+                        "transfer's records")
     p.add_argument("--kernel", default=None,
                    help="registered kernel to check (non-demo mode)")
     p.add_argument("--problem", default="256,256,256",
@@ -134,8 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-memory headroom of a CPU child in MiB (demo)")
     p.add_argument("--fleet", action="store_true",
                    help="the fleet-assembly leg (not ported yet)")
-    p.add_argument("--transfer", action="store_true",
-                   help="the transfer leg (not ported yet)")
     p.add_argument("--out", default=None,
                    help="write the verdict report JSON here")
     p.set_defaults(fn=_cmd_check)

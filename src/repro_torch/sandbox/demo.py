@@ -18,13 +18,16 @@ device (the card unless the caller asks for the CPU):
 3. **online promotion** — the wrong config is offered as the winner to
    the online :class:`~repro_torch.online.promotion.PromotionPipeline` and
    must be rejected; the honest config must promote with ``verified``
-   provenance.
+   provenance;
+4. **transfer** — the wrong config ranks first among a transfer's
+   predictions (gpu-a100 onto this device's kind) and
+   ``TransferResult.record(gate=...)`` must fall through to the honest
+   runner-up, with ``verified`` provenance.
 
-The reference's fleet-assembly and transfer legs need ``fleet/``,
-``distrib/`` and ``transfer/``, which are not ported (ROADMAP.md queue 1
-item 13): asking for them raises ``NotImplementedError``. The report names
-the legs that ran, and ``bad_promotions`` counts a wrong config that
-became wisdom on any of them.
+The reference's fleet-assembly leg needs ``fleet/``, which is not ported
+(ROADMAP.md queue 1 item 13): asking for it raises
+``NotImplementedError``. The report names the legs that ran, and
+``bad_promotions`` counts a wrong config that became wisdom on any of them.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.core.registry import register, unregister
 from repro_torch.core.wisdom import Wisdom
 from repro_torch.core.wisdom_kernel import WisdomKernel
 from repro_torch.online.promotion import PromotionPipeline
+from repro_torch.transfer import TransferPrediction, TransferResult
 
 from .evaluator import SandboxedEvaluator, SandboxSettings
 from .faults import FAULT_PARAM, FaultyEvaluator, make_faulty_kernel
@@ -58,7 +62,9 @@ EXPECTED_VERDICTS = {
 
 #: Legs of the reference's demo that wait for their layers (ROADMAP.md
 #: queue 1 item 13).
-UNPORTED_LEGS = ("fleet", "transfer")
+UNPORTED_LEGS = ("fleet",)
+#: The device kind the transfer leg's predictions come from.
+TRANSFER_SOURCE = "gpu-a100"
 
 #: Share of the card's memory a CUDA child may allocate in the sandbox leg.
 DEVICE_MEMORY_FRACTION = 0.02
@@ -175,19 +181,52 @@ def _online_path(builder, gate: OracleGate, device_kind: str,
             problems, bad)
 
 
+def _transfer_path(builder, gate: OracleGate, device_kind: str
+                   ) -> tuple[dict, list, int]:
+    """Wrong config ranks first among predictions; ``record(gate=...)``
+    must fall through to the honest runner-up."""
+    problems: list[str] = []
+    predictions = [
+        TransferPrediction(config=dict(_WRONG), source_us=50.5,
+                           smoothed_us=50.5, rank_us=50.5,
+                           predicted_us=50.5),
+        TransferPrediction(config=dict(_HONEST), source_us=101.0,
+                           smoothed_us=101.0, rank_us=101.0,
+                           predicted_us=101.0),
+    ]
+    result = TransferResult(
+        kernel=builder.name, source_device=TRANSFER_SOURCE,
+        target_device=device_kind, problem_size=_PROBLEM, dtype=_DTYPE,
+        predictions=predictions, confidence=0.9,
+        components={"entries": 2, "calibration": "workload"})
+    try:
+        record = result.record(gate=gate)
+    except ValueError as e:
+        problems.append(f"transfer: every prediction was vetoed ({e})")
+        return {"recorded": None}, problems, 0
+    bad = 0
+    if record.config.get(FAULT_PARAM) != "none":
+        bad = 1
+        problems.append("transfer: recorded the wrong config")
+    if record.provenance.get("verified") is None:
+        problems.append("transfer: record lacks verified provenance")
+    return ({"recorded": record.config.get(FAULT_PARAM),
+             "score_us": record.score_us}, problems, bad)
+
+
 def run_demo(timeout_s: float = 5.0,
              memory_mb: int | None = None,
              out_dir: Path | str | None = None,
              device: str | torch.device = "cuda",
-             fleet: bool = False, transfer: bool = False) -> dict:
+             fleet: bool = False) -> dict:
     """Run the injected-fault gauntlet on ``device``; return the report.
 
     ``report["pass"]`` is True iff every fault produced its expected
     verdict and ``report["bad_promotions"] == 0`` — no injected
     wrong-output config became wisdom on a leg that ran. ``timeout_s`` is
     each spawned child's payload ceiling (its start does not count);
-    ``memory_mb`` the host-memory headroom of a CPU child. ``fleet`` / ``transfer`` ask for
-    the reference's legs that wait for their layers, and raise
+    ``memory_mb`` the host-memory headroom of a CPU child. ``fleet`` asks
+    for the reference's leg that waits for its layer, and raises
     ``NotImplementedError``.
 
     Example::
@@ -195,12 +234,11 @@ def run_demo(timeout_s: float = 5.0,
         report = run_demo(device="cpu")
         assert report["pass"], report["problems"]
     """
-    for leg, wanted in zip(UNPORTED_LEGS, (fleet, transfer)):
-        if wanted:
-            raise NotImplementedError(
-                f"the demo's {leg} leg needs repro.fleet, repro.distrib and "
-                f"repro.transfer, which are not ported yet (ROADMAP.md "
-                f"queue 1 item 13)")
+    if fleet:
+        raise NotImplementedError(
+            "the demo's fleet leg needs repro.fleet and the sync transports "
+            "of repro.distrib, which are not ported yet (ROADMAP.md queue 1 "
+            "item 13)")
     dev = resolve_device(device)
     device_kind = "gpu-h100" if dev.type == "cuda" else "cpu"
     builder = make_faulty_kernel(hang_s=3600.0)
@@ -228,6 +266,10 @@ def run_demo(timeout_s: float = 5.0,
                                                      device_kind, Path(tmp))
         problems += p
         bad_promotions += bad
+
+        transfer_report, p, bad = _transfer_path(builder, gate, device_kind)
+        problems += p
+        bad_promotions += bad
     finally:
         unregister(builder.name)
         clear_verdict_cache()
@@ -236,11 +278,11 @@ def run_demo(timeout_s: float = 5.0,
         "kernel": builder.name,
         "device": str(dev),
         "timeout_s": timeout_s,
-        "legs": ["sandbox", "oracle", "online"],
+        "legs": ["sandbox", "oracle", "online", "transfer"],
         "legs_not_ported": list(UNPORTED_LEGS),
         "sandbox": sandbox_report,
         "oracle": oracle_report,
-        "paths": {"online": online_report},
+        "paths": {"online": online_report, "transfer": transfer_report},
         "bad_promotions": bad_promotions,
         "problems": problems,
         "pass": not problems and bad_promotions == 0,

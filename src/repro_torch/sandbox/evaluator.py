@@ -367,7 +367,10 @@ class SandboxedEvaluator:
     evaluator crosses to the child by pickle, so it must be an object of
     plain fields (:class:`KernelTrial`,
     :class:`~repro_torch.sandbox.faults.FaultyEvaluator`). Per-config
-    verdicts are kept on :attr:`verdicts` for reporting.
+    verdicts are kept on :attr:`verdicts` for reporting. With
+    ``record_to`` (a :class:`~repro_torch.tunebench.SpaceDataset`) every
+    result is recorded in this process, an infeasible one with its
+    verdict, so a replayed space remembers which configs kill workers.
 
     Example::
 
@@ -381,9 +384,13 @@ class SandboxedEvaluator:
     """
 
     def __init__(self, evaluator: Callable[..., EvalResult],
-                 settings: SandboxSettings | None = None) -> None:
+                 settings: SandboxSettings | None = None,
+                 record_to=None) -> None:
         self.evaluator = evaluator
         self.settings = settings if settings is not None else SandboxSettings()
+        #: Optional dataset recorder (``record(config, EvalResult)``): the
+        #: parent records every result, the verdict with it.
+        self.record_to = record_to
         #: Verdicts in evaluation order: ``(config, SandboxVerdict)``.
         self.verdicts: list[tuple[dict, SandboxVerdict]] = []
 
@@ -400,6 +407,12 @@ class SandboxedEvaluator:
                        detail=verdict.detail[:200])
 
     def __call__(self, config) -> EvalResult:
+        result = self._evaluate(config)
+        if self.record_to is not None:
+            self.record_to.record(config, result)
+        return result
+
+    def _evaluate(self, config) -> EvalResult:
         import functools
 
         run = functools.partial(_evaluate, self.evaluator, dict(config))

@@ -1,8 +1,10 @@
 """Offline tuner (paper §4.3), port of ``repro.tuner``: strategies, the
 wall-clock evaluator on the card, the analytical cost model and its
-evaluator, capture replay and the CLI."""
+evaluator, the surrogate fitted from a recorded space, capture replay and
+the CLI."""
 
-from .costmodel import INFEASIBLE, CostModel, kernel_time
+from .costmodel import (INFEASIBLE, CostModel, FittedCostModel,
+                        fit_from_dataset, kernel_time)
 from .runner import (CostModelEvaluator, EvalResult, VerifyOutcome,
                      WallClockEvaluator, verify_config, verify_outcome)
 from .strategies import (STRATEGIES, Evaluation, TuningResult, tune_anneal,
@@ -10,7 +12,8 @@ from .strategies import (STRATEGIES, Evaluation, TuningResult, tune_anneal,
 from .tune import plan_captures, tune_capture, tune_kernel
 
 __all__ = [
-    "INFEASIBLE", "CostModel", "kernel_time",
+    "INFEASIBLE", "CostModel", "FittedCostModel", "fit_from_dataset",
+    "kernel_time",
     "CostModelEvaluator", "EvalResult", "VerifyOutcome", "WallClockEvaluator",
     "verify_config", "verify_outcome",
     "STRATEGIES", "Evaluation", "TuningResult", "tune_anneal", "tune_bayes",

@@ -27,8 +27,13 @@ In the port the model is the screening objective of the online tuner
 ranks candidates before any of them is launched, and the card's CUDA-event
 times decide. Its inputs on the H100 are the kernels' workload hooks: the
 stencils' ``reuse`` is their launch plan's staged-to-computed ratio, matmul
-and flash attention give their tiles (``kernels/*.py``). ``FittedCostModel``
-and ``fit_from_dataset`` wait for ``tunebench`` (ROADMAP.md).
+and flash attention give their tiles (``kernels/*.py``).
+
+:class:`FittedCostModel` is the data-driven surrogate: a ridge regression
+fitted (:func:`fit_from_dataset`) on a recorded tuning space, the card's
+own wall-clock recordings included (``repro_torch.tunebench``); its
+predictions and fit quality are the reference's to rtol 1e-12 on the same
+dataset.
 """
 
 from __future__ import annotations
@@ -36,9 +41,12 @@ from __future__ import annotations
 import hashlib
 import math
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import numpy as np
 
 from repro_torch.core.device import DeviceSpec
+from repro_torch.core.param import Config, ConfigSpace
 from repro_torch.core.workload import Workload
 
 INFEASIBLE = float("inf")
@@ -160,3 +168,136 @@ def kernel_time(workload: Workload, device: DeviceSpec, dtype: str,
                         get_device("gpu-h100"), "float32")
     """
     return CostModel(device).time(workload, dtype, noise_key)
+
+
+# --------------------- data-driven surrogate (tunebench) ---------------------
+
+@dataclass
+class FittedCostModel:
+    """Surrogate objective fitted from a recorded tuning-space dataset.
+
+    Ridge regression of log-score on the unit-encoded config (linear +
+    quadratic terms), so prediction needs only the config — no workload
+    hook, no device table. It is deliberately crude: the point is a
+    *cheap, data-grounded* screen (e.g. ranking candidates before live
+    trials), not replacing the recorded scores themselves. ``rmse_log``
+    reports training error in log-space; compare against
+    ``baseline_rmse_log`` (a constant predictor) to judge whether the
+    fit learned anything.
+
+    When fitted with ``profile_features=True`` (see
+    :func:`fit_from_dataset`) the design matrix additionally carries the
+    roofline counters the profiler recorded per config
+    (:data:`repro_torch.prof.profile.PROFILE_FEATURES`); predictions look the
+    config's counters up by its stable hash (``profile_lookup``), so the
+    surrogate generalizes from *hardware structure* — a config's
+    predicted compute/memory time terms — rather than raw coordinates.
+    Configs the dataset never profiled contribute zero columns, which
+    the centered regression treats as "no extra information".
+
+    Example::
+
+        model = fit_from_dataset(SpaceDataset.load("matmul.space.json"))
+        ranked = sorted(space.enumerate(), key=model.predict)
+    """
+
+    space: ConfigSpace
+    weights: np.ndarray
+    mean_log: float
+    rmse_log: float
+    baseline_rmse_log: float
+    n_samples: int = 0
+    _dim: int = field(default=0)
+    profile_lookup: dict | None = None
+    n_profile_features: int = 0
+
+    def _features(self, config: Config) -> np.ndarray:
+        u = self.space.to_unit(config)
+        base = np.concatenate([[1.0], u, u * u])
+        if self.profile_lookup is None:
+            return base
+        extra = self.profile_lookup.get(
+            self.space.freeze(config))
+        if extra is None:
+            extra = np.zeros(self.n_profile_features)
+        return np.concatenate([base, extra])
+
+    def predict(self, config: Config) -> float:
+        """Predicted objective value (microseconds) for ``config``."""
+        return float(math.exp(self._features(config) @ self.weights
+                              + self.mean_log))
+
+    def fit_quality(self) -> float:
+        """How much structure the fit explains, in [0, 1].
+
+        ``1 - rmse_log / baseline_rmse_log`` clamped to [0, 1]: 0 means
+        the surrogate is no better than predicting the mean (it learned
+        nothing), values near 1 mean the recorded landscape is almost
+        fully captured. The transfer layer folds this into its
+        confidence score — a prediction re-ranked through a surrogate
+        that learned nothing deserves no trust.
+        """
+        if self.baseline_rmse_log <= 0:
+            return 0.0
+        return float(min(1.0, max(0.0,
+                                  1.0 - self.rmse_log
+                                  / self.baseline_rmse_log)))
+
+
+def fit_from_dataset(dataset, ridge: float = 1e-3,
+                     profile_features: bool = False) -> FittedCostModel:
+    """Fit a :class:`FittedCostModel` from a recorded space.
+
+    ``dataset`` is any object with the
+    :class:`~repro_torch.tunebench.SpaceDataset` query surface (``space()`` and ``feasible()``); the fit uses every
+    feasible entry. Raises ``ValueError`` with fewer than 3 feasible
+    evaluations — below that a surrogate is noise.
+
+    ``profile_features=True`` appends each entry's recorded roofline
+    counters (``entry.profile``, written by the always-on profiler in
+    the tuner evaluators) as extra regression columns — the
+    profile-guided surrogate. Datasets recorded before the profiler
+    existed fit exactly as without the flag (all-zero columns carry no
+    signal), so the flag is always safe to pass.
+
+    Example::
+
+        ds = SpaceDataset.load("datasets/matmul--....space.json")
+        model = fit_from_dataset(ds, profile_features=True)
+        model.predict({"block_m": 128, ...})
+    """
+    feas = dataset.feasible()
+    if len(feas) < 3:
+        raise ValueError(
+            f"need at least 3 feasible evaluations to fit, have {len(feas)}")
+    space = dataset.space()
+    x = np.stack([np.concatenate([[1.0], u, u * u]) for u in
+                  (space.to_unit(e.config) for e in feas)])
+    lookup = None
+    n_prof = 0
+    if profile_features:
+        # Import here: repro_torch.prof depends on core only, but keeping the
+        # tuner importable without it preserves layer independence.
+        from repro_torch.prof.profile import (PROFILE_FEATURES,
+                                        profile_feature_vector)
+        n_prof = len(PROFILE_FEATURES)
+        cols = np.array([profile_feature_vector(
+            getattr(e, "profile", None) or {}) for e in feas])
+        x = np.concatenate([x, cols], axis=1)
+        lookup = {space.freeze(e.config): cols[i]
+                  for i, e in enumerate(feas)}
+    y = np.log(np.array([e.score_us for e in feas]))
+    mean_log = float(y.mean())
+    yc = y - mean_log
+    # ridge: (X'X + lam I) w = X'y  (bias column unpenalized via lam on all
+    # is fine at this scale)
+    dim = x.shape[1]
+    gram = x.T @ x + ridge * np.eye(dim)
+    weights = np.linalg.solve(gram, x.T @ yc)
+    resid = x @ weights - yc
+    return FittedCostModel(
+        space=space, weights=weights, mean_log=mean_log,
+        rmse_log=float(np.sqrt(np.mean(resid**2))),
+        baseline_rmse_log=float(np.sqrt(np.mean(yc**2))),
+        n_samples=len(feas), _dim=dim,
+        profile_lookup=lookup, n_profile_features=n_prof)

@@ -12,6 +12,12 @@ loop but measures nothing about a kernel.
 hook, without launching it; with ``verify_args`` each distinct config is
 also run once on those tensors and held to the plain version
 (:func:`verify_config`). It is the online tuner's screening objective.
+
+Both evaluators also take ``record_to``: any object with a
+``record(config, EvalResult)`` method, in practice a
+:class:`~repro_torch.tunebench.SpaceDataset`, receives every evaluation
+(feasible or not) as it happens, so any tuning session becomes a recorded
+search space that can be replayed later without the card.
 """
 
 from __future__ import annotations
@@ -157,6 +163,13 @@ def verify_config(builder: KernelBuilder, config: Config,
     return verify_outcome(got, builder.make_reference()(*args), dtype)
 
 
+def _recorded(record_to, config: Config, result: EvalResult) -> EvalResult:
+    """Hand ``result`` to the evaluator's dataset recorder, if any."""
+    if record_to is not None:
+        record_to.record(config, result)
+    return result
+
+
 class CostModelEvaluator:
     """Score a config with the analytical cost model, launching nothing.
 
@@ -180,7 +193,7 @@ class CostModelEvaluator:
     def __init__(self, builder: KernelBuilder, problem: tuple[int, ...],
                  dtype: str, device: DeviceSpec | str,
                  verify_args: Sequence[torch.Tensor] | None = None,
-                 verify: str = "auto") -> None:
+                 verify: str = "auto", record_to=None) -> None:
         self.builder = builder
         self.problem = tuple(problem)
         self.dtype = dtype
@@ -188,6 +201,9 @@ class CostModelEvaluator:
         self.model = CostModel(self.device)
         self.verify_args = verify_args
         self.verify = verify
+        #: Optional dataset recorder: ``record(config, EvalResult)`` is
+        #: called for every evaluation (see repro_torch.tunebench).
+        self.record_to = record_to
         self._verified_cache: dict[tuple, VerifyOutcome] = {}
 
     def _should_verify(self) -> bool:
@@ -199,6 +215,9 @@ class CostModelEvaluator:
         return nbytes <= VERIFY_BYTES_LIMIT
 
     def __call__(self, config: Config) -> EvalResult:
+        return _recorded(self.record_to, config, self._evaluate(config))
+
+    def _evaluate(self, config: Config) -> EvalResult:
         if not self.builder.space.is_valid(config):
             return EvalResult(INFEASIBLE, False, error="restricted")
         w = self.builder.make_workload(config, self.problem, self.dtype)
@@ -252,7 +271,8 @@ class WallClockEvaluator:
 
     def __init__(self, builder: KernelBuilder, args: Sequence[torch.Tensor],
                  device: str | torch.device = "cuda", repeats: int = 5,
-                 warmup: int = 1, verify: bool = True) -> None:
+                 warmup: int = 1, verify: bool = True,
+                 record_to=None) -> None:
         self.builder = builder
         self.device = torch.device(device)
         self.args = [torch.as_tensor(a).to(self.device) for a in args]
@@ -261,6 +281,9 @@ class WallClockEvaluator:
         self.repeats = repeats
         self.warmup = warmup
         self.verify = verify
+        #: Optional dataset recorder: ``record(config, EvalResult)`` is
+        #: called for every evaluation (see repro_torch.tunebench).
+        self.record_to = record_to
         self._want = None
         self._flush = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                                    device=self.device)
@@ -282,6 +305,9 @@ class WallClockEvaluator:
         return start.elapsed_time(end) / 1e3
 
     def __call__(self, config: Config) -> EvalResult:
+        return _recorded(self.record_to, config, self._evaluate(config))
+
+    def _evaluate(self, config: Config) -> EvalResult:
         if not self.builder.space.is_valid(config):
             return EvalResult(INFEASIBLE, False, error="restricted")
         try:

@@ -7,12 +7,16 @@ field values on a device kind both packages define give the same seconds,
 the hashed noise included (rtol 1e-12). The H100 spec, which only the port
 has, goes through the reference's formula too. The stencil hooks' inputs
 (``reuse`` from the launch plan) order configs as the card's times did,
-without moving the profiler's bounds (``tests/test_torch_prof.py``).
+without moving the profiler's bounds (``tests/test_torch_prof.py``). The
+surrogate fitted from a recorded space (``fit_from_dataset``) is the
+reference's to rtol 1e-12 on every shipped space and on one the port
+recorded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ from repro_torch.kernels import _stencil_common, advec_u, diff_uvw
 from repro_torch.prof import profile_from_workload
 from repro_torch.sandbox import make_faulty_kernel
 from repro_torch.tuner import (INFEASIBLE, CostModel, CostModelEvaluator,
+                               FittedCostModel, fit_from_dataset,
                                kernel_time, tune_kernel)
 from repro_torch.tuner.costmodel import _hash_noise
 
@@ -263,3 +268,89 @@ def test_compulsory_fields_stay_what_the_profiler_reads():
     assert _stencil_common.TILE_AHEAD + 1 == get_kernel(
         "advec_u").make_workload(get_kernel("advec_u").default_config(),
                                  (64,) * 3, "float32").unroll_ways
+
+
+# ------------------------------------------------ the fitted surrogate
+
+SHIPPED_SPACES = sorted((Path(__file__).resolve().parent.parent / "benchmarks"
+                         / "datasets").glob("*.space.json"))
+
+
+def _assert_same_fit(port_model, ref_model, configs):
+    assert port_model.n_samples == ref_model.n_samples
+    for attr in ("fit_quality",):
+        assert getattr(port_model, attr)() == pytest.approx(
+            getattr(ref_model, attr)(), rel=1e-12, abs=1e-15)
+    for attr in ("rmse_log", "baseline_rmse_log", "mean_log"):
+        assert getattr(port_model, attr) == pytest.approx(
+            getattr(ref_model, attr), rel=1e-12)
+    np.testing.assert_allclose(port_model.weights, ref_model.weights,
+                               rtol=1e-12, atol=1e-12)
+    for cfg in configs:
+        assert port_model.predict(cfg) == pytest.approx(
+            ref_model.predict(cfg), rel=1e-12)
+
+
+@pytest.mark.parametrize("profile_features", [False, True])
+@pytest.mark.parametrize("path", SHIPPED_SPACES,
+                         ids=lambda p: p.name.split(".")[0])
+def test_fit_from_dataset_is_the_references(path, profile_features):
+    """The same recorded space gives the same ridge weights, fit quality
+    and predictions (rtol 1e-12), with and without profile features, on
+    recorded and unrecorded configs alike."""
+    from repro.tunebench import SpaceDataset as RefSpaceDataset
+    from repro.tuner.costmodel import fit_from_dataset as ref_fit
+    from repro_torch.tunebench import SpaceDataset
+
+    ds = SpaceDataset.load(path)
+    port_model = fit_from_dataset(ds, profile_features=profile_features)
+    ref_model = ref_fit(RefSpaceDataset.load(path),
+                        profile_features=profile_features)
+    configs = [e.config for e in ds.evaluations.values()]
+    configs += ds.space().sample(np.random.default_rng(0), 8)
+    _assert_same_fit(port_model, ref_model, configs)
+    assert isinstance(port_model, FittedCostModel)
+
+
+def test_fit_on_a_space_the_port_recorded_is_the_references(tmp_path):
+    """A Hopper-native space recorded by the port's cost model, saved and
+    loaded by the reference: both fits agree on every config."""
+    from repro.tunebench import SpaceDataset as RefSpaceDataset
+    from repro.tuner.costmodel import fit_from_dataset as ref_fit
+    from repro_torch.tunebench import record_space
+
+    ds = record_space(get_kernel("matmul"), (512, 512, 1024), "float32",
+                      "gpu-h100")
+    path = ds.save(tmp_path / "mm.space.json")
+    for profile_features in (False, True):
+        _assert_same_fit(
+            fit_from_dataset(ds, profile_features=profile_features),
+            ref_fit(RefSpaceDataset.load(path),
+                    profile_features=profile_features),
+            [e.config for e in ds.feasible()])
+
+
+def test_fit_needs_enough_samples():
+    from repro_torch.core import ConfigSpace
+    from repro_torch.tunebench import SpaceDataset
+    s = ConfigSpace()
+    s.tune("x", (0, 1, 2, 3), default=0)
+    ds = SpaceDataset("k", s, (8, 8), "float32", "gpu-h100")
+    ds.add({"x": 0}, 1.0, "ok")
+    with pytest.raises(ValueError, match="at least 3"):
+        fit_from_dataset(ds)
+
+
+def test_pretune_writes_h100_wisdom_by_the_cost_model(tmp_path, capsys):
+    """pretune prices every built-in kernel's scenarios on gpu-h100 with
+    the cost model (no launch) and writes a record for each."""
+    from repro_torch.core import Wisdom
+    from repro_torch.tuner.pretune import DTYPES, PROBLEMS, main
+    assert main(["--out", str(tmp_path), "--evals", "3"]) == 0
+    for name, problems in PROBLEMS.items():
+        w = Wisdom.load(name, tmp_path)
+        assert {(r.device_kind, r.problem_size, r.dtype) for r in w.records} \
+            == {("gpu-h100", p, d) for p in problems for d in DTYPES}
+        assert all(r.provenance["objective"] == "costmodel"
+                   for r in w.records)
+    assert "gpu-h100" in capsys.readouterr().out

@@ -622,3 +622,82 @@ def test_spawned_sandbox_with_cuda_in_the_child(cuda_device):
                                                           "float32")]
     got = advec_u.launch(K1_TILE, *args)
     assert verify_outcome(got, ref.advec_u_ref(*args), "float32").ok
+
+
+# --------------------------------------------- recorded spaces on the card
+
+#: The quickstart's matmul scenario; its first 18 configs in space order are
+#: every (stages, split_k, grid_order) of block 64 x 64 at block_k 8.
+RECORD_PROBLEM = (512, 512, 1024)
+RECORD_LIMIT = 18
+
+
+def _build_matmul_configs(configs, problem, dtype):
+    """Every config's library at ``problem``, one nvcc each, in parallel."""
+    _build.build_many([("matmul.cu", matmul.defines(c, matmul.plan(
+        c, *problem, dtype))) for c in configs])
+
+
+def test_record_space_by_wall_clock_on_card(cuda_device):
+    """Every config of one block_k, recorded on the card: each feasible,
+    timed, verified against the plain version, with its profile; the
+    dataset round-trips and its optimum is one of them."""
+    from repro_torch.tunebench import SpaceDataset, record_space
+
+    b = get_kernel("matmul")
+    cfgs = list(b.space.enumerate(limit=RECORD_LIMIT))
+    assert {(c["block_m"], c["block_n"], c["block_k"]) for c in cfgs} == \
+        {(64, 64, 8)}
+    _build_matmul_configs(cfgs, RECORD_PROBLEM, "float32")
+    ds = record_space(b, RECORD_PROBLEM, "float32", "gpu-h100",
+                      objective="wallclock", limit=RECORD_LIMIT)
+    assert len(ds) == RECORD_LIMIT == len(ds.feasible())
+    assert all(0 < e.score_us < 1e4 and e.profile["bottleneck"]
+               for e in ds.feasible())
+    assert ds.provenance["device"] == torch.cuda.get_device_name(0)
+    again = SpaceDataset.from_doc(ds.to_doc())
+    assert again.best().config == ds.best().config in cfgs
+
+
+def test_tune_kernel_records_its_dataset_on_card(cuda_device, tmp_path):
+    """tune_kernel(record_dataset=) by wall clock writes one entry per
+    evaluation, with the session's scores, and the winner through the
+    WisdomStore."""
+    from repro_torch.distrib import WisdomStore
+    from repro_torch.tunebench import DatasetStore
+    from repro_torch.tuner import tune_kernel
+
+    res = tune_kernel(get_kernel("matmul"), RECORD_PROBLEM, "float32",
+                      "gpu-h100", strategy="random", max_evals=4,
+                      time_budget_s=None, wisdom_dir=tmp_path / "w",
+                      record_dataset=tmp_path / "ds")
+    ds = DatasetStore(tmp_path / "ds").load_for(
+        "matmul", "gpu-h100", RECORD_PROBLEM, "float32")
+    assert len(ds) == len(res.evaluations) == 4
+    for e in res.evaluations:
+        assert e.feasible and ds.lookup(e.config).score_us == e.score_us
+    rec = WisdomStore(tmp_path / "w").load("matmul").records[0]
+    assert rec.config == res.best_config
+
+
+def test_sandboxed_evaluator_records_a_cuda_child(cuda_device):
+    """SandboxedEvaluator(record_to=) around a KernelTrial: the spawned
+    child builds and times the config on the card; this process records
+    the entry, feasible and without a verdict."""
+    from repro_torch.sandbox import (KernelTrial, SandboxedEvaluator,
+                                     SandboxSettings)
+    from repro_torch.tunebench import SpaceDataset
+
+    b = get_kernel("matmul")
+    cfg = b.default_config()
+    ds = SpaceDataset("matmul", b.space, RECORD_PROBLEM, "float32",
+                      "gpu-h100", objective="wallclock")
+    ev = SandboxedEvaluator(KernelTrial("matmul", RECORD_PROBLEM, "float32"),
+                            SandboxSettings(timeout_s=120.0,
+                                            device_memory_fraction=0.02),
+                            record_to=ds)
+    r = ev(cfg)
+    assert r.feasible and r.verified, r.error
+    entry = ds.lookup(cfg)
+    assert len(ds) == 1 and entry.feasible and entry.verdict == ""
+    assert entry.score_us == r.score_us

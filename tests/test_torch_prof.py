@@ -6,9 +6,10 @@ numbers and peaks give byte-identical profile JSON in both packages. The
 workload hooks are the port's own (compulsory traffic, a block's shared
 memory); their floors on ``gpu-h100`` are the bounds PERF.md §6 lists for
 each kernel row, and their ``vmem_bytes`` is what the launchers ask the
-card for. Counterparts of ``tests/test_prof.py``, but for the tests that
-need recorded tuning spaces or the fitted cost model, which are not
-ported (the entry points raise instead).
+card for. Counterparts of ``tests/test_prof.py``; the dataset half (the
+bottleneck attribution of recorded spaces and the profile-guided
+surrogate) reads the shipped ``benchmarks/datasets/*.space.json`` in both
+packages and must give the reference's dicts and text, byte for byte.
 """
 
 from __future__ import annotations
@@ -16,12 +17,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import repro.prof as rp
+import repro.prof.cli as repro_prof_cli
+import repro.tunebench as rtb
 from repro.core import get_kernel as repro_kernel
 from repro.core.device import DeviceSpec as RefDeviceSpec
 from repro.core.workload import Workload as RefWorkload
@@ -33,6 +37,7 @@ from repro_torch.kernels import advec_u, diff_uvw, flash_attention, matmul
 from repro_torch.obs import MetricsRegistry, Tracer, render_report, runtime
 from repro_torch.obs import validate_trace
 from repro_torch.prof import (DEFAULT_SAMPLE_EVERY, PROFILE_FEATURES,
+                              rerank_gate, surrogate_rerank,
                               PROFILE_VERSION, KernelProfile, Profiler,
                               ProfileVersionError, StepProfiler,
                               classify_bottleneck, classify_dataset,
@@ -45,6 +50,14 @@ from repro_torch.prof import (DEFAULT_SAMPLE_EVERY, PROFILE_FEATURES,
 
 torch.set_num_threads(1)
 H100 = get_device("gpu-h100")
+
+DATASET_DIR = (Path(__file__).resolve().parent.parent / "benchmarks"
+               / "datasets")
+DATASET_GLOB = str(DATASET_DIR / "*.space.json")
+SHIPPED = sorted(DATASET_DIR.glob("*.space.json"))
+ADVEC_PATH = DATASET_DIR / "advec_u--tpu-v5e--64x64x128--float32.space.json"
+MATMUL_BIG = (DATASET_DIR
+              / "matmul--tpu-v5e--8192x8192x8192--float32.space.json")
 
 
 @pytest.fixture(autouse=True)
@@ -610,17 +623,111 @@ def test_health_report_renders_prof_and_sandbox_sections():
     assert render_report(reg.snapshot()) == text
 
 
-def test_dataset_entry_points_raise_until_tunebench_is_ported(tmp_path):
+def test_dataset_entry_points_raise_until_tunebench_is_ported(tmp_path,
+                                                             capsys):
+    """tunebench is ported, so the dataset entry points no longer raise:
+    each gives the reference's output over the shipped spaces."""
     from repro_torch.prof.cli import main
     from repro_torch.prof.demo import run_demo
-    with pytest.raises(NotImplementedError, match="item 13"):
-        classify_dataset(None)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        render_attribution([])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["report", "--datasets", "*.space.json"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_demo(tmp_path, device="cpu", dataset_glob="*.space.json")
+    from repro_torch.tunebench import SpaceDataset
+    mine = [SpaceDataset.load(p) for p in SHIPPED]
+    theirs = [rtb.SpaceDataset.load(p) for p in SHIPPED]
+    for a, b in zip(mine, theirs):
+        assert classify_dataset(a) == rp.classify_dataset(b)
+    want = rp.render_attribution(theirs, rerank=False)
+    assert render_attribution(mine, rerank=False) == want
+    capsys.readouterr()
+    assert main(["report", "--datasets", DATASET_GLOB, "--no-rerank"]) == 0
+    assert capsys.readouterr().out == want
+    art = run_demo(tmp_path, device="cpu", dataset_glob=str(ADVEC_PATH))
+    assert art["report"].endswith(rp.render_attribution(
+        [rtb.SpaceDataset.load(ADVEC_PATH)]))
+
+
+# ------------------------ datasets + guided tuning ---------------------------
+
+def test_shipped_datasets_carry_profile_fields():
+    from repro_torch.tunebench import SpaceDataset
+    ds = SpaceDataset.load(ADVEC_PATH)
+    feas = ds.feasible()
+    assert feas and all(e.profile.get("bottleneck") for e in feas)
+    c = classify_dataset(ds)
+    assert c["bottleneck"] == "memory"
+    assert c["distribution"] == {"memory": len(feas)}
+    big = classify_dataset(SpaceDataset.load(MATMUL_BIG))
+    assert big["bottleneck"] == "compute"
+    assert big["distribution"]["memory"] > big["distribution"]["compute"]
+
+
+def test_dataset_profile_field_roundtrips():
+    from repro_torch.tunebench.dataset import SpaceEvaluation
+    e = SpaceEvaluation(config={"block": 8}, score_us=1.5, status="ok",
+                        profile={"bottleneck": "memory", "flops": 2.0})
+    d = e.to_json()
+    assert SpaceEvaluation.from_json(d).profile == e.profile
+    assert d == rtb.SpaceEvaluation.from_json(d).to_json()
+    bare = SpaceEvaluation(config={"block": 8}, score_us=1.5, status="ok")
+    assert "profile" not in bare.to_json()   # byte-compat with old files
+
+
+def test_costmodel_accepts_profile_features():
+    from repro_torch.tuner.costmodel import fit_from_dataset
+    from repro_torch.tunebench import SpaceDataset
+    ds = SpaceDataset.load(ADVEC_PATH)
+    plain = fit_from_dataset(ds)
+    model = fit_from_dataset(ds, profile_features=True)
+    assert model.n_profile_features == len(PROFILE_FEATURES)
+    assert model.profile_lookup
+    cfg = ds.feasible()[0].config
+    assert np.isfinite(model.predict(cfg))
+    assert plain.profile_lookup is None
+
+
+@pytest.mark.parametrize("path", SHIPPED, ids=lambda p: p.name.split(".")[0])
+def test_surrogate_rerank_is_the_references(path):
+    """surrogate_rerank's report and rerank_gate's verdict on every shipped
+    space are the reference's (fractions to 1e-12, via the same JSON)."""
+    from repro_torch.tunebench import SpaceDataset
+    mine = surrogate_rerank(SpaceDataset.load(path))
+    theirs = rp.surrogate_rerank(rtb.SpaceDataset.load(path))
+    assert json.dumps(mine, sort_keys=True) == json.dumps(theirs,
+                                                          sort_keys=True)
+    assert rerank_gate(mine) == rp.rerank_gate(theirs)
+
+
+def test_surrogate_rerank_gate_holds_on_shipped_space():
+    from repro_torch.core.param import ConfigSpace
+    from repro_torch.tunebench import SpaceDataset
+    r = surrogate_rerank(SpaceDataset.load(ADVEC_PATH))
+    assert [s["surrogate"] for s in r["surrogates"]] == ["ridge", "profile"]
+    for s in r["surrogates"]:
+        assert all(0.0 < f <= 1.0 for f in s["fraction_at"].values())
+    assert rerank_gate(r) == []            # profile never loses
+    tiny = SpaceDataset("k", ConfigSpace(), (1,), "float32", "gpu-h100")
+    with pytest.raises(ValueError):
+        surrogate_rerank(tiny)             # too few feasible entries
+
+
+def test_render_attribution_is_byte_identical_with_rerank():
+    """The whole report over the shipped spaces, surrogate section and
+    gates included, is the reference's text."""
+    from repro_torch.tunebench import SpaceDataset
+    mine = render_attribution([SpaceDataset.load(p) for p in SHIPPED])
+    theirs = rp.render_attribution([rtb.SpaceDataset.load(p)
+                                    for p in SHIPPED])
+    assert mine == theirs
+    assert "Profile-guided surrogate" in mine and "gate:" in mine
+
+
+def test_cli_report_over_datasets_matches_the_reference(tmp_path):
+    from repro_torch.prof.cli import main
+    a, b = tmp_path / "port.txt", tmp_path / "ref.txt"
+    assert main(["report", "--datasets", str(ADVEC_PATH),
+                 "--out", str(a)]) == 0
+    assert repro_prof_cli.main(["report", "--datasets", str(ADVEC_PATH),
+                                "--out", str(b)]) == 0
+    assert a.read_bytes() == b.read_bytes()
+    assert "advec_u" in a.read_text() and "memory-bound" in a.read_text()
 
 
 # ------------------------------ demo + CLI -----------------------------------

@@ -8,7 +8,9 @@ is the reference's byte for byte; the gate vetoes the faulty kernel's
 ``wrong`` config in both packages, and its cache key names the device. The
 spawned children import torch (seconds each), so the tests start them all
 at once. The same checks with CUDA in the child run on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 8).
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phases 8 and 9).
+``SandboxedEvaluator(record_to=...)`` records what the reference's does,
+the verdict with it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro.sandbox import clear_verdict_cache as ref_clear_cache
 from repro.sandbox import make_faulty_kernel as ref_faulty
 from repro.sandbox import memory_ceiling as ref_memory_ceiling
 from repro.sandbox import sandboxed_call as ref_sandboxed_call
+from repro.tunebench import SpaceDataset as RefSpaceDataset
 
 from repro_torch.core import Wisdom, WisdomKernel, get_kernel
 from repro_torch.core.registry import all_kernels, register, unregister
@@ -40,7 +43,9 @@ from repro_torch.sandbox import (FAULT_PARAM, CorrectnessOracle,
                                  SandboxVerdict, clear_verdict_cache,
                                  make_faulty_kernel, sandboxed_call)
 from repro_torch.sandbox import cli, gate as gate_module
-from repro_torch.sandbox.demo import EXPECTED_VERDICTS, run_demo
+from repro_torch.sandbox.demo import (EXPECTED_VERDICTS, UNPORTED_LEGS,
+                                      run_demo)
+from repro_torch.tunebench import SpaceDataset
 
 torch.set_num_threads(1)
 
@@ -70,6 +75,11 @@ def _settings(mode: str) -> SandboxSettings:
         memory_bytes=128 * 2**20)
 
 
+def _fault_dataset(cls, space):
+    """An empty recorded space of the faulty kernel's scenario."""
+    return cls("faulty", space, PROBLEM, DTYPE, "cpu", objective="wallclock")
+
+
 @pytest.fixture(scope="module")
 def spawned():
     """Every fault mode, one kernel trial and one oracle check, each in its
@@ -84,6 +94,12 @@ def spawned():
                 b, b.make_probe_args((8, 8, 16), "float32"),
                 settings=SandboxSettings(timeout_s=CHILD_TIMEOUT_S))
             return name, (None, oracle.check(b.default_config()))
+        if name == "recorded":
+            ds = _fault_dataset(SpaceDataset, make_faulty_kernel().space)
+            ev = SandboxedEvaluator(FaultyEvaluator(hang_s=3600.0),
+                                    _settings("raise"), record_to=ds)
+            ev({"scale": 1, FAULT_PARAM: "raise"})
+            return name, (ds, ev.verdicts[-1][1])
         if name == "trial":
             ev = SandboxedEvaluator(
                 KernelTrial("advec_u", (8, 8, 16), "float32", device="cpu",
@@ -96,7 +112,7 @@ def spawned():
             result = ev({"scale": 1, FAULT_PARAM: name})
         return name, (result, ev.verdicts[-1][1])
 
-    names = [*EXPECTED_VERDICTS, "trial", "oracle"]
+    names = [*EXPECTED_VERDICTS, "trial", "oracle", "recorded"]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(pool.map(one, names))
 
@@ -137,6 +153,42 @@ def test_spawned_kernel_trial_builds_and_times_in_the_child(spawned):
     assert verdict.ok and verdict.exit_cause == "exit:0"
     assert result.feasible and result.verified is True
     assert 0 < result.score_us < float("inf")
+
+
+def test_spawned_crash_is_recorded_with_its_verdict(spawned):
+    """record_to= records a spawned child's crash as an infeasible entry
+    carrying the verdict, as the reference's forked child's is."""
+    ds, verdict = spawned["recorded"]
+    entry = ds.lookup({"scale": 1, FAULT_PARAM: "raise"})
+    assert verdict.status == "crash" and len(ds) == 1
+    assert (entry.status, entry.verdict) == ("infeasible", "crash")
+    assert entry.error.startswith("sandbox:crash:")
+    ref_ds = _fault_dataset(RefSpaceDataset, ref_faulty().space)
+    RefSandboxedEvaluator(RefFaultyEvaluator(),
+                          RefSandboxSettings(timeout_s=30.0),
+                          record_to=ref_ds)({"scale": 1, FAULT_PARAM: "raise"})
+    ref_entry = ref_ds.lookup({"scale": 1, FAULT_PARAM: "raise"})
+    assert (entry.status, entry.verdict, entry.score_us) == (
+        ref_entry.status, ref_entry.verdict, ref_entry.score_us)
+
+
+@pytest.mark.parametrize("mode", ["none", "raise", "wrong"])
+def test_inline_record_to_matches_the_reference(mode):
+    """Inline, each recorded entry is the reference's: its status, verdict
+    and error, and an ok verdict is not stored."""
+    cfg = {"scale": 1, FAULT_PARAM: mode}
+    ds = _fault_dataset(SpaceDataset, make_faulty_kernel().space)
+    SandboxedEvaluator(FaultyEvaluator(), SandboxSettings(method="inline"),
+                       record_to=ds)(cfg)
+    ref_ds = _fault_dataset(RefSpaceDataset, ref_faulty().space)
+    RefSandboxedEvaluator(RefFaultyEvaluator(),
+                          RefSandboxSettings(method="inline"),
+                          record_to=ref_ds)(cfg)
+    got, want = ds.lookup(cfg).to_json(), ref_ds.lookup(cfg).to_json()
+    assert set(got) == set(want)
+    for key in ("config", "status", "error", "verdict"):
+        assert got.get(key) == want.get(key)
+    assert list(ds.evaluations) == list(ref_ds.evaluations)
 
 
 def test_spawned_oracle_check_rebuilds_the_probe_in_the_child(spawned):
@@ -293,19 +345,32 @@ def test_demo_gauntlet_passes_on_the_host():
     report = run_demo(timeout_s=5.0, device="cpu")
     assert report["problems"] == [] and report["pass"] is True
     assert report["bad_promotions"] == 0
-    assert report["legs"] == ["sandbox", "oracle", "online"]
-    assert report["legs_not_ported"] == ["fleet", "transfer"]
+    assert report["legs"] == ["sandbox", "oracle", "online", "transfer"]
+    assert report["legs_not_ported"] == ["fleet"]
     assert report["sandbox"]["hang"]["status"] == "timeout"
     assert report["sandbox"]["segv"]["exit_cause"].startswith("signal:")
     assert report["oracle"]["wrong"]["status"] == "numerics-mismatch"
     assert report["paths"]["online"]["rejected_status"] == \
         "numerics-mismatch"
+    # the transfer leg fell through the wrong top prediction to the honest
+    # runner-up, as the reference's does
+    assert report["paths"]["transfer"] == {"recorded": "none",
+                                           "score_us": 101.0}
 
 
 @pytest.mark.parametrize("leg", ["fleet", "transfer"])
-def test_demo_legs_that_wait_for_their_layers_raise(leg):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_demo(device="cpu", **{leg: True})
+def test_demo_legs_that_wait_for_their_layers_raise(leg, faulty):
+    """The fleet leg still waits for ``fleet/`` and raises; the transfer
+    leg is ported: its records go through the gate on the host, which
+    vetoes the wrong top prediction."""
+    if leg in UNPORTED_LEGS:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            run_demo(device="cpu", **{leg: True})
+        return
+    from repro_torch.sandbox.demo import _transfer_path
+    report, problems, bad = _transfer_path(faulty, OracleGate(), "cpu")
+    assert (report, problems, bad) == (
+        {"recorded": "none", "score_us": 101.0}, [], 0)
 
 
 def test_cli_check_runs_on_the_requested_device(capsys, tmp_path):
