@@ -111,7 +111,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``tune_kernel(record_dataset=)`` on the quickstart scenario,
    ``SandboxedEvaluator(record_to=)`` with CUDA children, and ``transfer
    predict`` into a ``WisdomStore`` whose ``select`` on the card's
-   scenario serves tier transfer only above the confidence gate.
+   scenario serves tier transfer only above the confidence gate;
+10. fleet wisdom distribution, each item's nvcc runs and seconds printed:
+   (1) ``run_local_fleet`` under the cost model over a directory each,
+   the quickstart's matmul and the slice's causal flash attention on the
+   card's kind, 1 worker and then 3 with w1 crashing after 13
+   evaluations: byte-identical wisdom, every lease claimed once but the
+   crashed shard's (twice), each winner through the coordinator's
+   ``OracleGate`` on the card (its K3 and K4 launches counted) and
+   placed in phase 9's recording of its scenario; (2) a coordinator and
+   3 workers under a ``ManualClock``, round robin, each evaluation timed
+   on the card by ``WallClockEvaluator``: matmul (512, 512, 1024) f32 in
+   4 shards over its 216 configs, the assembled config beside phase 9's
+   best; (3) phase 8's demand (MicroHH 512^3 f32) on a shared directory,
+   ``python -m repro_torch.fleet plan``, two concurrent ``work --poll``
+   children, ``coordinate --rounds 3`` (its gate launches K1 and K2a on
+   the card), ``status``; each assembled config served at tier exact
+   from a store pulled from the directory, its output held at 512^3;
+   (4) a serving host whose store is a copy of phase 5d's wisdom pulls
+   (1)'s directory from ``ServeEngine(sync=PullSync(...))`` while it
+   answers phase 5e's 8 requests (served tokens/s without sync, with it
+   and without it again, obs on in all three), then a 4 x 2048 prefill selects the merged K4 record at tier
+   exact and its logits hold against the prefill before the pull
+   within (c)'s bf16 tolerance; which record won, and its source, is
+   printed; (5) phase 8 item 2's K2b promotion with a ``PushSync``
+   broadcast hook, served by a second host's pull at tier exact; (6)
+   ``python -m repro_torch.wisdom`` inspect, validate and diff over the
+   phase's stores.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
 read just after; every kernel of the path must have launched there. The
@@ -156,8 +182,14 @@ from repro_torch.core.registry import register, unregister  # noqa: E402
 from repro_torch.core.scenario import MISS_TIERS, format_key  # noqa: E402
 from repro_torch.core.wisdom import (TRANSFER_MIN_CONFIDENCE,  # noqa: E402
                                      WISDOM_DIR_ENV, Wisdom)
-from repro_torch.distrib import WisdomStore  # noqa: E402
+from repro_torch.distrib import (DirectoryTransport,  # noqa: E402
+                                 MemoryTransport, PullSync, PushSync,
+                                 WisdomStore, transport_wisdom)
 from repro_torch.examples import quickstart, tune_microhh  # noqa: E402
+from repro_torch.fleet import (ControlBus, Coordinator,  # noqa: E402
+                               FleetWorker, ManualClock, publish_demand,
+                               run_local_fleet, seed_demand)
+from repro_torch.fleet.cli import main as fleet_cli  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
@@ -175,6 +207,7 @@ from repro_torch.sandbox import (FAULT_PARAM, KernelTrial,  # noqa: E402
                                  SandboxSettings,
                                  clear_verdict_cache, device_assert,
                                  make_faulty_kernel, sandboxed_call)
+from repro_torch.sandbox import gate as gate_module  # noqa: E402
 from repro_torch.sandbox.demo import (EXPECTED_VERDICTS,  # noqa: E402
                                       run_fault_modes)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -186,7 +219,8 @@ from repro_torch.tunebench import (DatasetStore, SpaceDataset,  # noqa: E402
                                    dump_report, record_space)
 from repro_torch.tunebench import compare as compare_strategies  # noqa: E402
 from repro_torch.tuner import (CostModel, CostModelEvaluator,  # noqa: E402
-                               fit_from_dataset, tune_capture, tune_kernel)
+                               WallClockEvaluator, fit_from_dataset,
+                               tune_capture, tune_kernel)
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
@@ -493,6 +527,10 @@ TIMED: list[tuple[str, tuple, str, dict, float]] = []
 #: Phase 6's whole-space sweeps, builder -> [(config, ms)]: phase 9 ranks
 #: its recordings against them.
 SWEEPS: dict[str, list[tuple[dict, float]]] = {}
+#: Phase 8's online demand, kernel -> ScenarioTracker, and phase 9's
+#: recordings on the card, builder -> SpaceDataset: phase 10 reads both.
+DEMAND: dict = {}
+RECORDINGS: dict[str, SpaceDataset] = {}
 
 
 def timing_row(name: str, shape, dtype: str, configs: dict, args) -> dict:
@@ -1036,8 +1074,9 @@ def lm_f32_check(fa) -> dict:
     return err
 
 
-def phase_lm() -> dict:
-    """The LM slice on the card; returns what it measured."""
+def phase_lm(lm_wisdom: Path) -> dict:
+    """The LM slice on the card; returns what it measured. (d)'s wisdom
+    is copied to ``lm_wisdom`` for phase 10."""
     fa = _build.CUDA_KERNELS["flash_attention"]
     out = {"f32": lm_f32_check(fa)}
     cfg = get_arch(LM_ARCH)
@@ -1154,6 +1193,7 @@ def phase_lm() -> dict:
                      for t, n in ops.fa_causal_kernel.tier_counts.items()
                      if n != tiers0.get(t, 0)}
         ops.reload_wisdom()
+        shutil.copytree(f"{tmp}/wisdom", lm_wisdom)
     check(tiers == {"exact": cfg.n_layers},
           f"tuned prefill selected {tiers}, want exact x {cfg.n_layers}")
     out["tuned"] = res.best_config
@@ -1353,6 +1393,7 @@ def online_scenario(name: str, wisdom: Path, reg) -> dict:
     k = WisdomKernel(get_kernel(name), wisdom_dir=wisdom,
                      device_kind=current_device_kind())
     svc = enable_online_tuning(k, objective="wallclock", seed=0)
+    DEMAND[name] = svc.tracker
     args = tune_microhh.launch_args(name, ONLINE_GRID, "float32", cuda)
     activated_at = None
     for i in range(1, ONLINE_MAX_LAUNCHES + 1):
@@ -1441,10 +1482,12 @@ def online_scenario(name: str, wisdom: Path, reg) -> dict:
     return res
 
 
-def deterministic_promotion(wisdom: Path) -> dict:
+def deterministic_promotion(wisdom: Path, broadcast=None,
+                            label: str = "online") -> dict:
     """Phase 8 item 2: offer K2b's tile config over the ldg default to the
     promotion pipeline by hand, timed here; the next launch selects it in
-    tier exact with nothing to compile, and its output holds."""
+    tier exact with nothing to compile, and its output holds. Phase 10
+    item 5 repeats it with a ``broadcast`` hook."""
     cuda = torch.device("cuda")
     args = tune_microhh.launch_args("diff_uvw", ONLINE_GRID, "float32",
                                     cuda)
@@ -1452,7 +1495,7 @@ def deterministic_promotion(wisdom: Path) -> dict:
     ldg_ms = time_ms(calls("diff_uvw_single", K2B_LDG, args)[0])
     k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=wisdom,
                      device_kind=current_device_kind())
-    pipe = PromotionPipeline(k)
+    pipe = PromotionPipeline(k, broadcast=broadcast)
     promo = pipe.promote(k.device_kind, ONLINE_GRID, "float32", K2B_TILE,
                          score_us=tile_ms * 1e3,
                          incumbent_score_us=ldg_ms * 1e3, n_measurements=10,
@@ -1473,10 +1516,11 @@ def deterministic_promotion(wisdom: Path) -> dict:
     check(v.ok, f"K2b tile at 512^3 after promotion: {v.error}")
     res = {"tile_ms": tile_ms, "ldg_ms": ldg_ms, "tier": st.tier,
            "compile_s": st.compile_s, "max_abs_err": v.max_err,
-           "verified": promo.record.oracle_verified()}
+           "verified": promo.record.oracle_verified(),
+           "broadcasts": pipe.broadcasts}
     del args
     torch.cuda.empty_cache()
-    print("online deterministic promotion K2b " + json.dumps(res),
+    print(f"{label} deterministic promotion K2b " + json.dumps(res),
           flush=True)
     return res
 
@@ -1645,6 +1689,7 @@ def record_on_card(name: str, problem, dtype: str) -> SpaceDataset:
     feas = ds.feasible()
     check(feas and all(e.score_us > 0 and e.profile for e in feas),
           f"record {name}: feasible entries without a time or a profile")
+    RECORDINGS[name] = ds
     best = ds.best()
     default = ds.lookup(builder.default_config())
     sweep = {json.dumps(c, sort_keys=True): ms
@@ -1843,6 +1888,391 @@ def phase_recorded(tmp: Path) -> dict:
     return out
 
 
+# ------------------------------------------------ fleet wisdom (10)
+
+#: Misses each phase-10 scenario is seeded with (the coordinator plans a
+#: job from 3).
+FLEET_MISSES = 5
+#: Seconds a phase-10 subprocess may run (it imports torch first).
+FLEET_PROC_TIMEOUT_S = 300
+
+
+def fleet_demand() -> list:
+    """Phase 10 item 1's demand: the quickstart's matmul and the LM
+    slice's causal flash attention, on the card's kind."""
+    kind = current_device_kind()
+    return [("matmul", (kind, QS_MATMUL, "float32"), FLEET_MISSES),
+            ("flash_attention_causal", (kind, lm_flash_shape(), "bfloat16"),
+             FLEET_MISSES)]
+
+
+def launch_counts() -> dict:
+    """Every CUDA kernel's launches so far (phase 10 reads differences)."""
+    return {k: _build.CUDA_KERNELS[k].launches for k in TPU_KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def gate_verdict(name: str, rec: dict):
+    """The verdict the gate on the card gave a record's config (the
+    process-wide cache every OracleGate shares)."""
+    b = get_kernel(name)
+    return gate_module._VERDICT_CACHE.get(
+        (name, tuple(rec["problem_size"]), rec["dtype"],
+         b.space.freeze(rec["config"]), "cuda"))
+
+
+def fleet_library(tmp: Path) -> dict:
+    """Phase 10 item 1: ``run_local_fleet`` under the cost model over a
+    directory each, 1 worker and then 3 with w1 crashing after 13
+    evaluations: the same wisdom bytes, every lease claimed once but the
+    crashed shard's, and each winner through the coordinator's gate on
+    the card (its K3 and K4 launches counted here)."""
+    clear_verdict_cache()
+    before = launch_counts()
+    runs = {}
+    for n, crash in ((1, None), (3, "w1")):
+        runs[n] = run_local_fleet(
+            n_workers=n, demand=fleet_demand(),
+            transport=DirectoryTransport(tmp / f"fleet-{n}w"),
+            crash_worker=crash, crash_after_evals=13 if crash else None,
+            device="cuda")
+    gate = launches_since(before)
+    one, three = runs[1], runs[3]
+    names = sorted(three.wisdom_docs)
+    check(names == ["flash_attention_causal", "matmul"]
+          and all((tmp / "fleet-1w" / f"{n}.wisdom.json").read_bytes()
+                  == (tmp / "fleet-3w" / f"{n}.wisdom.json").read_bytes()
+                  for n in names),
+          "fleet: 1 worker and 3 with a crash assembled different wisdom")
+    claims = sorted(three.claims().values())
+    check(three.crashes == 1 and claims == [1] * (len(claims) - 1) + [2]
+          and set(one.claims().values()) == {1}
+          and three.status["jobs_open"] == 0
+          and len(three.jobs_assembled) == 2,
+          f"fleet: crashes {three.crashes}, claims {three.claims()}, "
+          f"status {three.status}")
+    check(gate.get("matmul", 0) > 0 and gate.get("flash_attention", 0) > 0,
+          f"fleet: the gate launched {gate} on the card")
+    out = {"gate_launches": gate, "claims_3w": claims,
+           "shards_by_worker": three.shards_by_worker,
+           "evals_by_worker": three.evals_by_worker, "winners": {}}
+    for name in names:
+        rec, = three.wisdom_docs[name]["records"]
+        v = gate_verdict(name, rec)
+        check(v is not None and v.ok and rec["provenance"].get("verified"),
+              f"fleet: {name} winner {rec['config']} gate {v}")
+        ds = RECORDINGS[name]
+        entry = ds.lookup(rec["config"])
+        out["winners"][name] = {
+            "config": rec["config"], "model_us": rec["score_us"],
+            "gate": v.status, "gate_max_abs_err": v.max_err,
+            "recorded_us": entry.score_us if entry else None,
+            "recording_best_us": ds.best().score_us,
+            "fraction_of_recorded_best": fraction_of_optimum(ds,
+                                                             rec["config"])}
+    print("fleet (1) " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_timed() -> dict:
+    """Phase 10 item 2: a coordinator gating on the card and 3 workers
+    under a ManualClock, round robin in this process, each shard's
+    evaluations timed on the card (WallClockEvaluator: the first launch
+    checks and is unscored, the best of 5 after L2 flushes): the
+    quickstart's matmul in 4 shards over its 216 configs."""
+    kind = current_device_kind()
+    bus = ControlBus(MemoryTransport())
+    seed_demand(bus, "phase10", [("matmul", (kind, QS_MATMUL, "float32"),
+                                  FLEET_MISSES)])
+    coord = Coordinator(bus, n_shards=4, max_evals_per_shard=216,
+                        device="cuda")
+    job, = coord.plan()
+    args = matrices(*QS_MATMUL, "float32", seed=10)
+    clock = ManualClock()
+    workers = [FleetWorker(bus, f"w{i}", clock=clock,
+                           evaluator_factory=lambda builder, _job:
+                           WallClockEvaluator(builder, args, device="cuda"))
+               for i in range(3)]
+    t = time.perf_counter()
+    progressed = True
+    while progressed:
+        progressed = False
+        for w in workers:
+            progressed |= w.run_once() is not None
+    tune_s = time.perf_counter() - t
+    report = coord.tick()
+    check(report.assembled == [job.job_id],
+          f"timed fleet: assembled {report.assembled}")
+    rec, = transport_wisdom(bus.transport, "matmul").records
+    evals = sum(w.evals_run for w in workers)
+    ds = RECORDINGS["matmul"]
+    check(evals == get_kernel("matmul").space.valid_cardinality()
+          and rec.oracle_verified() is not None,
+          f"timed fleet: {evals} evaluations, provenance {rec.provenance}")
+    out = {"config": rec.config, "score_us": rec.score_us,
+           "objective": rec.provenance["objective"], "evaluations": evals,
+           "tune_s": tune_s, "phase9_best": ds.best().config,
+           "phase9_best_us": ds.best().score_us,
+           "phase9_us_of_this_config": ds.lookup(rec.config).score_us,
+           "shards_by_worker": {w.worker_id: w.shards_done
+                                for w in workers}}
+    del args
+    print("fleet (2) timed " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_run(*argv: str) -> subprocess.CompletedProcess:
+    """``python -m repro_torch.fleet ...`` (or another module) in a child
+    process; every phase-10 child must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", *argv], env=env,
+                          capture_output=True, text=True,
+                          timeout=FLEET_PROC_TIMEOUT_S)
+
+
+def check_proc(p: subprocess.CompletedProcess, what: str) -> str:
+    check(p.returncode == 0, f"{what}: rc {p.returncode}\n{p.stdout}\n"
+          f"{p.stderr[-3000:]}")
+    return p.stdout
+
+
+def fleet_processes(tmp: Path) -> dict:
+    """Phase 10 item 3: phase 8's demand on a shared directory; ``plan``,
+    two concurrent ``work --poll`` processes, ``coordinate --rounds 3``
+    (in this process, so the gate's launches on the card are counted),
+    ``status``; then each assembled config through a WisdomKernel on a
+    store pulled from the directory, at 512^3 on the card."""
+    d = tmp / "fleet-cli"
+    bus = ControlBus(DirectoryTransport(d))
+    publish_demand(bus, "phase8", DEMAND)
+    print("fleet (3) plan: " + check_proc(
+        fleet_run("repro_torch.fleet", "plan", "--dir", str(d)), "plan")
+        .strip().replace("\n", " | "), flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        works = list(pool.map(lambda w: fleet_run(
+            "repro_torch.fleet", "work", "--dir", str(d), "--worker-id", w,
+            "--poll", "0.5"), ("host-a", "host-b")))
+    for w, p in zip(("host-a", "host-b"), works):
+        print(f"fleet (3) {w}: " + check_proc(p, f"work {w}").strip()
+              .replace("\n", " | "), flush=True)
+    before = launch_counts()
+    rc = fleet_cli(["coordinate", "--dir", str(d), "--rounds", "3"])
+    gate = launches_since(before)
+    check(rc == 0 and gate.get("advec_u", 0) > 0
+          and gate.get("diff_uvw_fused", 0) > 0,
+          f"fleet coordinate: rc {rc}, gate launches {gate}")
+    status = check_proc(fleet_run("repro_torch.fleet", "status", "--dir",
+                                  str(d)), "status")
+    print("fleet (3) status: " + status.strip().replace("\n", " | "),
+          flush=True)
+    done = bus.docs("done")
+    check(len(done) == len(bus.names("job")) == len(DEMAND)
+          and all(doc["state"] == "assembled" for doc in done),
+          f"fleet (3): done documents {done}")
+    store = WisdomStore(tmp / "fleet-cli-pulled")
+    PullSync(store, DirectoryTransport(d)).pull()
+    cuda = torch.device("cuda")
+    out = {"gate_launches": gate, "jobs": len(done), "selected": {}}
+    for name in sorted(DEMAND):
+        rec, = store.load(name).records
+        k = WisdomKernel(get_kernel(name), wisdom_dir=store.root,
+                         device_kind=current_device_kind())
+        args = tune_microhh.launch_args(name, ONLINE_GRID, "float32", cuda)
+        got = k(*args)
+        st = k.stats[-1]
+        want = (ref.advec_u_ref(*args) if name == "advec_u"
+                else ref.diff_uvw_ref(*args))
+        v = verify_outcome(got, want, "float32")
+        check(st.tier == "exact" and st.config == rec.config and v.ok,
+              f"fleet (3) {name}: tier {st.tier}, {st.config} vs "
+              f"{rec.config}, {v.error}")
+        out["selected"][name] = {"config": rec.config,
+                                 "model_us": rec.score_us, "tier": st.tier,
+                                 "max_abs_err": v.max_err}
+        del args, got, want
+    torch.cuda.empty_cache()
+    print("fleet (3) " + json.dumps(out), flush=True)
+    return out
+
+
+def lm_serve(model, params, sync=None):
+    """Phase 5e's 8 requests through a fresh ServeEngine; (report, s)."""
+    eng = ServeEngine(model, params, n_slots=4, max_seq=256, mode="token",
+                      sync=sync)
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        prompt = rng.integers(0, model.cfg.vocab, int(rng.integers(8, 33)),
+                              dtype=np.int32)
+        check(eng.submit(Request(rid, prompt, max_new_tokens=16)),
+              f"request {rid} rejected")
+    rep, sec = timed(eng.run)
+    check(rep.requests_completed == 8
+          and all(len(t) == 16 for t in rep.values()),
+          f"serve: {rep.to_json()}")
+    return rep, sec
+
+
+def fleet_serve_pull(tmp: Path, fleet_dir: Path, lm_wisdom: Path) -> dict:
+    """Phase 10 item 4: a serving host whose store is a copy of phase
+    5d's wisdom pulls item 1's fleet directory from its decode loop
+    (``ServeEngine(sync=PullSync(...))``, ops' flash WisdomKernel
+    attached); the next 4 x 2048 prefill selects the merged record."""
+    local = tmp / "fleet-serve-wisdom"
+    shutil.copytree(lm_wisdom, local)
+    store = WisdomStore(local)
+    kind = current_device_kind()
+    fa = ops.fa_causal_kernel
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tok = lm_tokens(LM_BATCH, LM_SEQ, cfg.vocab, seed=2)
+    scen = (kind, lm_flash_shape(), "bfloat16")
+    local_rec, = [r for r in store.load(fa.builder.name).records
+                  if r.scenario() == scen]
+    with quickstart._env(**{WISDOM_DIR_ENV: str(local)}):
+        ops.reload_wisdom()
+        before, _ = model.prefill(params, tok,
+                                  model.init_cache(LM_BATCH, LM_SEQ))
+        check(fa.stats[-1].tier == "exact"
+              and fa.stats[-1].config == local_rec.config,
+              f"serve pull: the prefill before the pull ran "
+              f"{fa.stats[-1].tier} {fa.stats[-1].config}")
+        # without sync, with it, and without it again, obs on throughout
+        obs_runtime.disable()
+        reg, _ = obs_runtime.enable()
+        plain, plain_s = lm_serve(model, params)
+        sync = PullSync(store, DirectoryTransport(fleet_dir), kernels=[fa])
+        synced, synced_s = lm_serve(model, params, sync)
+        _, again_s = lm_serve(model, params)
+        ticks = {k: v for k, v in reg.snapshot()["counters"].items()
+                 if k.startswith("serve.sync_tick")}
+        obs_runtime.disable()
+        check(synced.sync_pulls >= 1 and synced.sync_failures == 0
+              and sync.failures == 0
+              and ticks.get("serve.sync_tick{outcome=pulled}", 0) >= 1,
+              f"serve pull: {synced.to_json()}, {ticks}")
+        merged, = [r for r in store.load(fa.builder.name).records
+                   if r.scenario() == scen]
+        after, _ = model.prefill(params, tok,
+                                 model.init_cache(LM_BATCH, LM_SEQ))
+        st = fa.stats[-1]
+    ops.reload_wisdom()
+    err = logit_errors(after, before)
+    check(st.tier == "exact" and st.config == merged.config
+          and lm_bf16_ok(err),
+          f"serve pull: the prefill after the pull ran {st.tier} "
+          f"{st.config} (merged {merged.config}), logits {err}")
+    out = {"local": {"config": local_rec.config,
+                     "score_us": local_rec.score_us,
+                     "objective": local_rec.provenance.get("objective")},
+           "merged": {"config": merged.config, "score_us": merged.score_us,
+                      "source": merged.provenance.get("source", "local"),
+                      "objective": merged.provenance.get("objective")},
+           "sync_pulls": synced.sync_pulls,
+           "sync_failures": synced.sync_failures, "sync_ticks": ticks,
+           "prefill_tier": st.tier, "logits_vs_before_pull": err,
+           "tok_s_without_sync": [8 * 16 / plain_s, 8 * 16 / again_s],
+           "tok_s_with_sync": 8 * 16 / synced_s,
+           "steps": [plain.steps, synced.steps]}
+    del model, params, before, after
+    torch.cuda.empty_cache()
+    print("fleet (4) " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_broadcast(tmp: Path, microhh_wisdom: Path) -> dict:
+    """Phase 10 item 5: phase 8 item 2's K2b promotion with a
+    ``PushSync`` broadcast hook; a second host pulls the record and serves
+    it at tier exact, its 512^3 output against the plain version."""
+    copy = tmp / "fleet-k2b"
+    shutil.copytree(microhh_wisdom, copy)
+    transport = DirectoryTransport(tmp / "fleet-broadcast")
+    clear_verdict_cache()
+    res = deterministic_promotion(
+        copy, broadcast=PushSync(WisdomStore(copy), transport),
+        label="fleet (5)")
+    remote = [r for r in transport_wisdom(transport, "diff_uvw").records
+              if r.config == K2B_TILE]
+    check(res["broadcasts"] == 1 and len(remote) == 1,
+          f"broadcast: {res['broadcasts']} broadcasts, {len(remote)} "
+          f"records on the transport")
+    second = WisdomStore(tmp / "fleet-second")
+    PullSync(second, transport).pull()
+    k = WisdomKernel(get_kernel("diff_uvw"), wisdom_dir=second.root,
+                     device_kind=current_device_kind())
+    args = tune_microhh.launch_args("diff_uvw", ONLINE_GRID, "float32",
+                                    torch.device("cuda"))
+    got = k(*args)
+    st = k.stats[-1]
+    v = verify_outcome(got, ref.diff_uvw_ref(*args), "float32")
+    check(st.tier == "exact" and st.config == K2B_TILE and v.ok,
+          f"broadcast: the second host ran {st.tier} {st.config}: "
+          f"{v.error}")
+    out = {"broadcasts": res["broadcasts"], "second_host_tier": st.tier,
+           "max_abs_err": v.max_err}
+    del args, got
+    torch.cuda.empty_cache()
+    print("fleet (5) " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_operator_cli(tmp: Path) -> dict:
+    """Phase 10 item 6: ``python -m repro_torch.wisdom`` inspect, validate
+    and diff over the phase's stores, three children at once."""
+    runs = {
+        "inspect": ("inspect", "--dir", str(tmp / "fleet-serve-wisdom"),
+                    "-v"),
+        "validate": ("validate", "--dir", str(tmp / "fleet-3w")),
+        "diff": ("diff", str(tmp / "fleet-second"),
+                 str(tmp / "fleet-broadcast")),
+    }
+    with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+        procs = dict(zip(runs, pool.map(
+            lambda argv: fleet_run("repro_torch.wisdom", *argv),
+            runs.values())))
+    out = {}
+    for cmd, p in procs.items():
+        text = check_proc(p, f"wisdom {cmd}")
+        print(f"fleet (6) wisdom {cmd}: " + text.strip().replace(
+            "\n", " | "), flush=True)
+        out[cmd] = p.returncode
+    check(procs["validate"].stdout.rstrip().endswith(", 0 issue(s)")
+          and "identical" in procs["diff"].stdout,
+          "wisdom validate found issues, or diff found a difference")
+    return out
+
+
+def phase_fleet(tmp: Path, microhh_wisdom: Path, lm_wisdom: Path) -> dict:
+    """Phase 10: fleet wisdom distribution on the card, each item's nvcc
+    runs and seconds printed."""
+    t10 = time.perf_counter()
+    before = launch_counts()
+    items = (
+        ("1 library fleet", lambda: fleet_library(tmp)),
+        ("2 timed fleet", fleet_timed),
+        ("3 CLI fleet", lambda: fleet_processes(tmp)),
+        ("4 serving pull", lambda: fleet_serve_pull(tmp, tmp / "fleet-3w",
+                                                    lm_wisdom)),
+        ("5 broadcast", lambda: fleet_broadcast(tmp, microhh_wisdom)),
+        ("6 operator CLI", lambda: fleet_operator_cli(tmp)),
+    )
+    out = {}
+    for label, fn in items:
+        runs0, t = _build.NVCC_RUNS, time.perf_counter()
+        out[label] = fn()
+        print(f"phase 10 item {label}: {_build.NVCC_RUNS - runs0} nvcc "
+              f"runs, {time.perf_counter() - t:.1f}s", flush=True)
+    out["seconds"] = time.perf_counter() - t10
+    out["launches"] = launches_since(before)
+    print(f"phase 10 launches: {json.dumps(out['launches'])}", flush=True)
+    print(f"phase 10 (fleet wisdom) took {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1867,7 +2297,8 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f}s] main path done", flush=True)
         _build.reset_launch_counts()
         ops_stats0 = {k: len(k.stats) for k in ops._ALL_KERNELS}
-        lm = phase_lm()
+        lm_wisdom = Path(tmp) / "lm-wisdom"
+        lm = phase_lm(lm_wisdom)
         stats.update({k.builder.name: len(k.stats) - n
                       for k, n in ops_stats0.items() if len(k.stats) > n})
         paths.append(("lm", len(pr.profiles)))
@@ -1891,6 +2322,7 @@ def main() -> int:
               flush=True)
         phase_online(wisdom / "microhh", Path(tmp))
         phase_recorded(Path(tmp))
+        phase_fleet(Path(tmp), wisdom / "microhh", lm_wisdom)
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

@@ -116,6 +116,31 @@ def make_provenance(strategy: str = "", evals: int = 0,
     }
 
 
+def make_fleet_provenance(strategy: str, evals: int, objective: str,
+                          job_id: str, n_shards: int,
+                          round_: int = 0) -> dict:
+    """Provenance for a coordinator-assembled fleet tuning record
+    (``repro_torch.fleet``).
+
+    Deterministic: no timestamp, host or user. A fleet job's result is a
+    pure function of (demand, config space, evaluator), and any
+    coordinator assembling the same shard results writes the same record
+    (``record_id`` hashes provenance). The job id and shard count say
+    where the number came from. The reference records ``jax_version``
+    where the port records ``torch_version``.
+    """
+    return {
+        "source": "fleet",
+        "strategy": strategy,
+        "evaluations": int(evals),
+        "objective": objective,
+        "job": job_id,
+        "shards": int(n_shards),
+        "round": int(round_),
+        "torch_version": torch.__version__,
+    }
+
+
 def make_transfer_provenance(source_device: str, source_entries: int,
                              confidence: float, predicted_us: float,
                              predictor: str = "ridge+capability",

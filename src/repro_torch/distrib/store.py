@@ -7,7 +7,7 @@ wraps one wisdom directory — the thing the paper's workflow ships between
 machines — with schema awareness: enumerating kernels, loading through the
 ``WISDOM_VERSION`` migration path, refusing future-version files loudly,
 validating every document, and pruning. It is the local endpoint the merge
-engine (:mod:`.merge`) operates on, and the sync transports will.
+engine (:mod:`.merge`) and sync transports (:mod:`.sync`) operate on.
 """
 
 from __future__ import annotations

@@ -21,9 +21,8 @@ two primitives and a report:
 * ``python -m repro_torch.obs`` — snapshot / report / trace CLI
   (:mod:`.cli`, demo run included).
 
-Fleet-wide aggregation over the control bus (``repro.fleet.health``) is not
-ported yet (ROADMAP.md queue 1 item 13): ``--bus`` and the demo's fleet half
-raise ``NotImplementedError``.
+Fleet-wide aggregation over the control bus lives in
+``repro_torch.fleet.health``; ``report --bus DIR`` renders it.
 """
 
 from .metrics import (COUNT_BUCKETS, DEFAULT_BUCKETS_US, SNAPSHOT_VERSION,

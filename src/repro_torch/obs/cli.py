@@ -3,16 +3,14 @@
 Operator entry points over the observability artifacts (port of
 ``repro.obs.cli``):
 
-* ``snapshot`` — merge metric snapshot files into one snapshot file;
-* ``report``   — render the wisdom-health report from snapshot files or a
-  saved Chrome trace;
+* ``snapshot`` — merge metric snapshots (files and/or every snapshot
+  published on a fleet bus directory) into one snapshot file;
+* ``report``   — render the wisdom-health report from snapshot files, a
+  saved Chrome trace, or a fleet bus directory;
 * ``trace``    — validate a Chrome trace file and summarize it;
 * ``demo``     — run the instrumented demo (launches on ``--device``, the
-  card by default) and write snapshot/trace/report artifacts.
-
-``--bus`` (snapshots published on a fleet bus directory) and ``demo
---fleet`` need the fleet layer, which is not ported yet (ROADMAP.md queue 1
-item 13); both raise ``NotImplementedError``.
+  card by default; ``--fleet`` adds a tiny local fleet) and write
+  snapshot/trace/report artifacts.
 
 Every command is deterministic given its inputs: the same snapshot
 bytes always render the same report bytes.
@@ -29,9 +27,11 @@ from .trace import load_trace, validate_trace
 
 
 def _bus_snapshots(bus_dir: str) -> list[dict]:
-    raise NotImplementedError(
-        f"reading snapshots from the fleet bus {bus_dir!r} needs the fleet "
-        f"layer, which is not ported yet (ROADMAP.md queue 1 item 13)")
+    from repro_torch.distrib.sync import DirectoryTransport
+    from repro_torch.fleet.bus import ControlBus
+    from repro_torch.fleet.health import fleet_snapshots
+    return list(fleet_snapshots(ControlBus(DirectoryTransport(bus_dir)))
+                .values())
 
 
 def _gather(args: argparse.Namespace) -> dict:
@@ -82,7 +82,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="torch device the launches run on (default cuda; "
                         "cpu runs the plain versions)")
     p.add_argument("--fleet", action="store_true",
-                   help="add the local-fleet portion (not ported yet)")
+                   help="add the local-fleet portion (its gate checks on "
+                        "--device)")
 
     args = ap.parse_args(argv)
 

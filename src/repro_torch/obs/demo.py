@@ -1,23 +1,23 @@
-"""Instrumented end-to-end demo: launches through every selection tier.
+"""Instrumented end-to-end demo: launches + a tiny local fleet.
 
 ``run_demo`` enables observability, drives a ``WisdomKernel`` through a
 scripted mix of selection tiers (exact hits, a served cross-device
 transfer, scenario-distance fallbacks, cold default launches) on
-``device`` (the card by default; ``"cpu"`` runs the plain versions), and
-writes every artifact the ``python -m repro_torch.obs`` CLI knows how to
-read:
+``device`` (the card by default; ``"cpu"`` runs the plain versions), with
+``fleet=True`` runs a small in-process fleet over the demo's exact
+scenario (its gate checks on ``device``) and publishes the process
+snapshot onto the fleet control bus, and writes every artifact the
+``python -m repro_torch.obs`` CLI knows how to read:
 
 * ``snapshot.json``        — this process's metric snapshot;
-* ``fleet-snapshot.json``  — the same snapshot (the bus-aggregated one
-  needs the fleet layer);
+* ``fleet-snapshot.json``  — the bus-aggregated fleet-wide snapshot (this
+  process's snapshot without ``fleet``);
 * ``trace.json``           — the Chrome trace (open in Perfetto);
 * ``report.txt``           — the rendered wisdom-health report.
 
 The launch mix is fixed, so the demo exercises every report section:
 hit rates below 1.0, a transfer-confidence distribution, and a
-non-empty top-missing-scenarios list. Port of ``repro.obs.demo``; its
-local-fleet half needs ``repro.fleet``, which is not ported yet
-(ROADMAP.md queue 1 item 13), so ``fleet=True`` raises.
+non-empty top-missing-scenarios list. Port of ``repro.obs.demo``.
 """
 
 from __future__ import annotations
@@ -80,10 +80,6 @@ def run_demo(out_dir: Path | str, fleet: bool = False,
     from repro_torch.core.registry import get_kernel
     from repro_torch.core.wisdom_kernel import WisdomKernel
 
-    if fleet:
-        raise NotImplementedError(
-            "the demo's local-fleet half needs repro.fleet, which is not "
-            "ported yet (ROADMAP.md queue 1 item 13)")
     dev = resolve_device(device)
     kind = current_device_kind(dev)
     out = Path(out_dir)
@@ -110,10 +106,24 @@ def run_demo(out_dir: Path | str, fleet: bool = False,
     for _ in range(3):                      # tier: default (empty wisdom)
         cold(*_mm(48, dev))
 
+    fleet_snap = reg.snapshot()
+    if fleet:
+        from repro_torch.fleet import ControlBus, run_local_fleet
+        from repro_torch.fleet.health import (aggregate_fleet_metrics,
+                                              publish_metrics)
+        fr = run_local_fleet(
+            n_workers=2,
+            demand=[("matmul", (kind, (64, 64, 64), "float32"), 5)],
+            strategy="random", n_shards=2, max_evals_per_shard=4,
+            device=dev)
+        bus = ControlBus(fr.transport)
+        publish_metrics(bus, "demo-host")
+        fleet_snap = aggregate_fleet_metrics(bus)
+
     snap = reg.snapshot()
     artifacts = {
         "snapshot": str(save_snapshot(snap, out / "snapshot.json")),
-        "fleet_snapshot": str(save_snapshot(snap,
+        "fleet_snapshot": str(save_snapshot(fleet_snap,
                                             out / "fleet-snapshot.json")),
         "trace": str(tracer.save(out / "trace.json")),
     }

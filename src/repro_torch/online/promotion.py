@@ -25,9 +25,10 @@ measurements), and if so:
    record at tier "exact".
 
 The ``broadcast`` hook (any ``broadcast(kernel_name, record)`` object or a
-bare callable) is accepted as in the reference; its fleet implementation,
-``repro.distrib.sync``, is not ported (ROADMAP.md queue 1 item 13), so it
-stays None in the port.
+bare callable) publishes each promoted record beyond this host.
+:class:`repro_torch.distrib.PushSync` is its fleet implementation: it
+merges the record into the transport's copy, so the fleet's wisdom only
+ever improves.
 """
 
 from __future__ import annotations
@@ -71,9 +72,9 @@ class PromotionPipeline:
                            else kernel.wisdom_dir)
         self.margin = margin
         self.min_measurements = min_measurements
-        #: Fleet hook: any object with ``broadcast(kernel_name, record)``,
-        #: or a bare callable taking the same two arguments. None =
-        #: local-only (the paper's model, and the port's until distrib).
+        #: Fleet hook: any object with ``broadcast(kernel_name, record)``
+        #: (``repro_torch.distrib.PushSync``), or a bare callable taking
+        #: the same two arguments. None = local-only (the paper's model).
         self.broadcast = broadcast
         self.broadcasts = 0
         #: The correctness gate every winner must clear before the wisdom

@@ -19,8 +19,9 @@ This package holds the two defenses the port's promotion path runs behind:
 
 :mod:`~repro_torch.sandbox.faults` provides the fault-injection fixtures
 the tests, ``python -m repro_torch.sandbox check --demo`` and the card's
-smoke run use to prove it. The reference's fleet-assembly and transfer
-promotion paths come with ``fleet/`` and ``transfer/`` (ROADMAP.md).
+smoke run use to prove it. The gate guards the online promotion, the
+fleet coordinator's assembly (``repro_torch.fleet``) and transferred
+records (``repro_torch.transfer``).
 """
 
 from .evaluator import (DEFAULT_TIMEOUT_S, KernelTrial, SandboxedEvaluator,

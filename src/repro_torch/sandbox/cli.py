@@ -7,7 +7,8 @@ Port of ``repro.sandbox.cli``. Subcommands:
             the card unless ``--device cpu``), or — with ``--demo`` — run
             the injected-fault gauntlet (hang/crash/oom/wrong-output
             candidates through the spawned sandbox, the oracle, the
-            online promotion path and a transfer's records) and fail
+            online promotion path, the fleet coordinator's assembly and a
+            transfer's records) and fail
             unless zero bad promotions happened. ``--out`` writes the
             verdict report as JSON.
 
@@ -16,10 +17,6 @@ Examples::
     python -m repro_torch.sandbox check --kernel advec_u \
         --problem 64,64,64 --dtype float32 --set body=tile
     python -m repro_torch.sandbox check --demo --device cpu
-
-``--fleet`` asks for the reference demo's leg that needs ``fleet/``; it
-raises ``NotImplementedError`` until that is ported (ROADMAP.md queue 1
-item 13).
 """
 
 from __future__ import annotations
@@ -83,13 +80,12 @@ def _cmd_check(args) -> int:
             return 2
         return _cmd_check_one(args)
     report = run_demo(timeout_s=args.timeout, memory_mb=args.memory_mb,
-                      device=args.device, fleet=args.fleet)
+                      device=args.device)
     if args.out:
         Path(args.out).write_text(json.dumps(report, indent=2,
                                              sort_keys=True) + "\n")
         print(f"verdict report -> {args.out}")
-    print(f"legs run: {', '.join(report['legs'])} (not ported: "
-          f"{', '.join(report['legs_not_ported'])})")
+    print(f"legs run: {', '.join(report['legs'])}")
     print("sandbox verdicts: "
           + ", ".join(f"{mode}={v['status']}"
                       for mode, v in sorted(report["sandbox"].items())))
@@ -116,8 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--demo", action="store_true",
                    help="run the injected-fault gauntlet (hang, crash, "
                         "oom, wrong output) through the sandbox, the "
-                        "oracle, the online promotion path and a "
-                        "transfer's records")
+                        "oracle, the online promotion path, the fleet "
+                        "coordinator's assembly and a transfer's records")
     p.add_argument("--kernel", default=None,
                    help="registered kernel to check (non-demo mode)")
     p.add_argument("--problem", default="256,256,256",
@@ -133,8 +129,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "from its start (demo)")
     p.add_argument("--memory-mb", type=int, default=None,
                    help="host-memory headroom of a CPU child in MiB (demo)")
-    p.add_argument("--fleet", action="store_true",
-                   help="the fleet-assembly leg (not ported yet)")
     p.add_argument("--out", default=None,
                    help="write the verdict report JSON here")
     p.set_defaults(fn=_cmd_check)

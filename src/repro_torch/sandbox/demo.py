@@ -1,7 +1,7 @@
 """End-to-end sandbox/oracle smoke: inject faults, count bad promotions.
 
 Port of ``repro.sandbox.demo``; ``run_demo`` is the engine behind
-``python -m repro_torch.sandbox check --demo``. It runs three legs on one
+``python -m repro_torch.sandbox check --demo``. It runs its legs on one
 device (the card unless the caller asks for the CPU):
 
 1. **sandbox verdicts** — a
@@ -19,15 +19,16 @@ device (the card unless the caller asks for the CPU):
    the online :class:`~repro_torch.online.promotion.PromotionPipeline` and
    must be rejected; the honest config must promote with ``verified``
    provenance;
-4. **transfer** — the wrong config ranks first among a transfer's
+4. **fleet** — the wrong config wins a shard (and the cross-shard
+   comparison); the fleet coordinator must fall back to the honest shard
+   winner, with ``verified`` provenance, and record the rejection;
+5. **transfer** — the wrong config ranks first among a transfer's
    predictions (gpu-a100 onto this device's kind) and
    ``TransferResult.record(gate=...)`` must fall through to the honest
    runner-up, with ``verified`` provenance.
 
-The reference's fleet-assembly leg needs ``fleet/``, which is not ported
-(ROADMAP.md queue 1 item 13): asking for it raises
-``NotImplementedError``. The report names the legs that ran, and
-``bad_promotions`` counts a wrong config that became wisdom on any of them.
+The report names the legs that ran, and ``bad_promotions`` counts a wrong
+config that became wisdom on any of them.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.registry import register, unregister
 from repro_torch.core.wisdom import Wisdom
 from repro_torch.core.wisdom_kernel import WisdomKernel
+from repro_torch.distrib.sync import MemoryTransport, transport_wisdom
+from repro_torch.fleet.bus import ControlBus
+from repro_torch.fleet.coordinator import Coordinator
+from repro_torch.fleet.jobs import TuningJob, job_id_for, lease_name
 from repro_torch.online.promotion import PromotionPipeline
 from repro_torch.transfer import TransferPrediction, TransferResult
 
@@ -60,9 +65,8 @@ EXPECTED_VERDICTS = {
     "hang": STATUS_TIMEOUT,
 }
 
-#: Legs of the reference's demo that wait for their layers (ROADMAP.md
-#: queue 1 item 13).
-UNPORTED_LEGS = ("fleet",)
+#: Legs of the reference's demo that wait for their layers (none left).
+UNPORTED_LEGS = ()
 #: The device kind the transfer leg's predictions come from.
 TRANSFER_SOURCE = "gpu-a100"
 
@@ -181,6 +185,51 @@ def _online_path(builder, gate: OracleGate, device_kind: str,
             problems, bad)
 
 
+def _fleet_path(builder, gate: OracleGate, device_kind: str
+                ) -> tuple[dict, list, int]:
+    """Wrong config wins a shard (and the cross-shard comparison); the
+    coordinator must fall back to the honest shard winner."""
+    problems: list[str] = []
+    bus = ControlBus(MemoryTransport())
+    coord = Coordinator(bus, n_shards=2, oracle=gate)
+    key = (device_kind, _PROBLEM, _DTYPE)
+    job = TuningJob(job_id=job_id_for(builder.name, key),
+                    kernel=builder.name, device_kind=device_kind,
+                    problem=_PROBLEM, dtype=_DTYPE, n_shards=2,
+                    misses=5)
+    bus.publish("job", job.job_id, job.to_json())
+    shard_results = [
+        {"job": job.job_id, "shard": "s000", "worker": "demo-w0",
+         "strategy": "exhaustive", "evals": 8, "feasible_evals": 8,
+         "best_config": dict(_WRONG), "best_score_us": 50.5},
+        {"job": job.job_id, "shard": "s001", "worker": "demo-w1",
+         "strategy": "exhaustive", "evals": 8, "feasible_evals": 8,
+         "best_config": dict(_HONEST), "best_score_us": 101.0},
+    ]
+    for doc in shard_results:
+        bus.publish("result", lease_name(job.job_id, doc["shard"]), doc)
+    records = coord.assemble()
+    done = bus.fetch("done", job.job_id)
+    if len(records) != 1:
+        problems.append(f"fleet: assembled {len(records)} records, wanted 1")
+    elif records[0].config.get(FAULT_PARAM) != "none":
+        problems.append("fleet: assembled record is the wrong config")
+    elif records[0].provenance.get("verified") is None:
+        problems.append("fleet: assembled record lacks verified provenance")
+    rejected = (done or {}).get("rejected", [])
+    if len(rejected) != 1:
+        problems.append(f"fleet: done doc records {len(rejected)} "
+                        f"rejections, wanted 1")
+    bad = sum(1 for rec in transport_wisdom(bus.transport,
+                                            builder.name).records
+              if rec.config.get(FAULT_PARAM) != "none")
+    if bad:
+        problems.append(f"fleet: {bad} wrong record(s) in fleet wisdom")
+    return ({"assembled": len(records), "rejected": len(rejected),
+             "done_state": (done or {}).get("state")},
+            problems, bad)
+
+
 def _transfer_path(builder, gate: OracleGate, device_kind: str
                    ) -> tuple[dict, list, int]:
     """Wrong config ranks first among predictions; ``record(gate=...)``
@@ -217,28 +266,20 @@ def _transfer_path(builder, gate: OracleGate, device_kind: str
 def run_demo(timeout_s: float = 5.0,
              memory_mb: int | None = None,
              out_dir: Path | str | None = None,
-             device: str | torch.device = "cuda",
-             fleet: bool = False) -> dict:
+             device: str | torch.device = "cuda") -> dict:
     """Run the injected-fault gauntlet on ``device``; return the report.
 
     ``report["pass"]`` is True iff every fault produced its expected
     verdict and ``report["bad_promotions"] == 0`` — no injected
     wrong-output config became wisdom on a leg that ran. ``timeout_s`` is
     each spawned child's payload ceiling (its start does not count);
-    ``memory_mb`` the host-memory headroom of a CPU child. ``fleet`` asks
-    for the reference's leg that waits for its layer, and raises
-    ``NotImplementedError``.
+    ``memory_mb`` the host-memory headroom of a CPU child.
 
     Example::
 
         report = run_demo(device="cpu")
         assert report["pass"], report["problems"]
     """
-    if fleet:
-        raise NotImplementedError(
-            "the demo's fleet leg needs repro.fleet and the sync transports "
-            "of repro.distrib, which are not ported yet (ROADMAP.md queue 1 "
-            "item 13)")
     dev = resolve_device(device)
     device_kind = "gpu-h100" if dev.type == "cuda" else "cpu"
     builder = make_faulty_kernel(hang_s=3600.0)
@@ -267,6 +308,10 @@ def run_demo(timeout_s: float = 5.0,
         problems += p
         bad_promotions += bad
 
+        fleet_report, p, bad = _fleet_path(builder, gate, device_kind)
+        problems += p
+        bad_promotions += bad
+
         transfer_report, p, bad = _transfer_path(builder, gate, device_kind)
         problems += p
         bad_promotions += bad
@@ -278,11 +323,12 @@ def run_demo(timeout_s: float = 5.0,
         "kernel": builder.name,
         "device": str(dev),
         "timeout_s": timeout_s,
-        "legs": ["sandbox", "oracle", "online", "transfer"],
+        "legs": ["sandbox", "oracle", "online", "fleet", "transfer"],
         "legs_not_ported": list(UNPORTED_LEGS),
         "sandbox": sandbox_report,
         "oracle": oracle_report,
-        "paths": {"online": online_report, "transfer": transfer_report},
+        "paths": {"online": online_report, "fleet": fleet_report,
+                  "transfer": transfer_report},
         "bad_promotions": bad_promotions,
         "problems": problems,
         "pass": not problems and bad_promotions == 0,

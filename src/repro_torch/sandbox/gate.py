@@ -2,8 +2,9 @@
 
 Port of ``repro.sandbox.gate``. A path that turns a tuning winner into a
 served :class:`~repro_torch.core.wisdom.WisdomRecord` — in the port, the
-online hot swap (:mod:`repro_torch.online.promotion`); the reference's
-fleet assembly and transfer paths are not ported yet — asks one question
+online hot swap (:mod:`repro_torch.online.promotion`), the fleet
+coordinator's assembly (:mod:`repro_torch.fleet.coordinator`) and a
+transfer's record (:mod:`repro_torch.transfer`) — asks one question
 first: *does this config compute the right answer?* The gate answers it
 by synthesizing deterministic probe arguments for the scenario (the
 kernel's ``probe`` hook), moving them to the device the kernel serves, and
@@ -157,6 +158,12 @@ class OracleGate:
                 _VERDICT_CACHE[cache_key] = verdict
         self.checks.append((name, (problem, dtype), verdict))
         return verdict
+
+    def check_record(self, kernel, record) -> SandboxVerdict:
+        """:meth:`check` for a :class:`~repro_torch.core.wisdom.WisdomRecord`
+        (scenario taken from the record itself), on the gate's device."""
+        return self.check(kernel, record.config, record.problem_size,
+                          record.dtype)
 
     # -- decisions -------------------------------------------------------------
 

@@ -26,9 +26,10 @@ cohort or arena generation; a decode-step profiler
 (``repro_torch.prof.StepProfiler``, or the ambient one under
 ``KERNEL_LAUNCHER_PROF``) times sampled steps up to the copy of their
 logits to the host, which every step makes anyway. Online autotuners
-(``repro_torch.online.OnlineTuner``, passed as ``online``) are ticked once
-per decode step, as in the reference; fleet wisdom sync (``sync``) is not
-ported yet (ROADMAP.md queue 1 item 10).
+(``repro_torch.online.OnlineTuner``, passed as ``online``) and fleet wisdom
+sync (``repro_torch.distrib.PullSync``, passed as ``sync``) are ticked once
+per decode step, as in the reference. A pull runs on the decode loop's
+host thread, between two steps.
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ class ServeReport:
     occupancy: float = 0.0
     inflight_admissions: int = 0
     scenario_switches: int = 0
+    sync_pulls: int = 0
+    sync_failures: int = 0
 
     def __getitem__(self, request_id: int) -> list[int]:
         return self.outputs[request_id]
@@ -104,7 +107,8 @@ class ServeReport:
     def to_json(self) -> dict:
         return {"cohorts": self.cohorts,
                 "requests_completed": self.requests_completed,
-                "steps": self.steps, "mode": self.mode,
+                "steps": self.steps, "sync_pulls": self.sync_pulls,
+                "sync_failures": self.sync_failures, "mode": self.mode,
                 "occupancy": self.occupancy,
                 "inflight_admissions": self.inflight_admissions,
                 "scenario_switches": self.scenario_switches}
@@ -120,7 +124,8 @@ class ServeEngine:
     or ``"cohort"``. The model's ``device`` holds the cache and runs the
     decode steps. ``profiler`` is an optional
     :class:`repro_torch.prof.StepProfiler`; ``online`` an optional
-    :class:`repro_torch.online.OnlineTuner` (or a list of them), ticked
+    :class:`repro_torch.online.OnlineTuner` (or a list of them) and
+    ``sync`` an optional :class:`repro_torch.distrib.PullSync`, both ticked
     once per decode step.
 
     Example::
@@ -134,7 +139,7 @@ class ServeEngine:
     def __init__(self, model, params, n_slots: int = 4,
                  max_seq: int = 512, temperature: float = 0.0,
                  rng_seed: int = 0, profiler=None, mode: str = "auto",
-                 online=None):
+                 online=None, sync=None):
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -165,6 +170,11 @@ class ServeEngine:
         elif not isinstance(online, (list, tuple)):
             online = [online]
         self.online = list(online)
+        # Optional fleet wisdom pull (repro_torch.distrib.PullSync): tick()
+        # is called once per decode step and pulls every sync.interval
+        # ticks, merging fleet wisdom into the local store and refreshing
+        # attached kernels, so this host serves the fleet's tuning results.
+        self.sync = sync
         # Optional decode-step profiler: every Nth step is timed and
         # recorded as a "serve.decode" roofline profile (params streamed
         # from device memory per step, so small-batch decode is
@@ -219,6 +229,17 @@ class ServeEngine:
             m.counter("serve.decode_steps").inc()
         for svc in self.online:
             svc.tick()
+        if self.sync is not None:
+            fails_before = self.sync.failures
+            pulled = self.sync.tick()
+            if m is not None:
+                if pulled is not None:
+                    outcome = "pulled"
+                elif self.sync.failures > fails_before:
+                    outcome = "failed"
+                else:
+                    outcome = "skipped"
+                m.counter("serve.sync_tick", outcome=outcome).inc()
 
     # -- cohort mode ---------------------------------------------------------
 
@@ -363,6 +384,8 @@ class ServeEngine:
         useful0 = self._useful_slot_steps
         inflight0 = self._inflight_admissions
         switches0 = self.batcher.scenario_switches
+        pulls0 = self.sync.pulls if self.sync is not None else 0
+        fails0 = self.sync.failures if self.sync is not None else 0
         if self.mode == "token":
             cohorts = self._run_token_mode(max_cohorts)
         else:
@@ -374,6 +397,10 @@ class ServeEngine:
             cohorts=cohorts,
             requests_completed=len(self.batcher.finished) - done0,
             steps=steps,
+            sync_pulls=(self.sync.pulls - pulls0
+                        if self.sync is not None else 0),
+            sync_failures=(self.sync.failures - fails0
+                           if self.sync is not None else 0),
             mode=self.mode,
             occupancy=(round(useful / (steps * self.n_slots), 4)
                        if steps else 0.0),

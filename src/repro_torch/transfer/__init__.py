@@ -25,10 +25,12 @@ optimization algorithms for auto-tuning GPU kernels"):
 * :mod:`.cli`       — ``python -m repro_torch.transfer``
   (predict / score / export).
 
-In the reference the prediction is not the end of the loop: the fleet
-coordinator enqueues verification tuning for transferred records whose
-observed latency does not hold. That loop needs ``fleet/``, which is not
-ported yet (ROADMAP.md queue 1 item 13); a measured record already beats a
+The prediction is not the end of the loop: the fleet coordinator's
+``check_transfers`` (:class:`repro_torch.fleet.Coordinator`) holds each
+transferred record's ``predicted_us`` to the serve latency hosts publish
+on the ``latency`` channel, and enqueues verification tuning for a
+scenario whose observation is worse than the prediction by more than
+``TRANSFER_VERIFY_TOLERANCE``; the measured record it assembles beats the
 transferred one in every merge (:func:`repro_torch.distrib.merge_wisdom`).
 Docs: ``docs/transfer-tuning.md``.
 """

@@ -701,3 +701,121 @@ def test_sandboxed_evaluator_records_a_cuda_child(cuda_device):
     entry = ds.lookup(cfg)
     assert len(ds) == 1 and entry.feasible and entry.verdict == ""
     assert entry.score_us == r.score_us
+
+
+# ------------------------------------------------------ fleet wisdom (sync)
+
+def _fleet_job(bus, kernel, problem, dtype, results):
+    """Publish a two-shard job with the given shard winners
+    ``[(config, score_us)]``, as workers would have."""
+    from repro_torch.fleet import TuningJob, job_id_for, lease_name
+    key = ("gpu-h100", tuple(problem), dtype)
+    job = TuningJob(job_id=job_id_for(kernel, key), kernel=kernel,
+                    device_kind="gpu-h100", problem=tuple(problem),
+                    dtype=dtype, n_shards=len(results), misses=5)
+    bus.publish("job", job.job_id, job.to_json())
+    for i, (cfg, us) in enumerate(results):
+        bus.publish("result", lease_name(job.job_id, f"s{i:03d}"), {
+            "job": job.job_id, "shard": f"s{i:03d}", "worker": f"w{i}",
+            "strategy": "exhaustive", "evals": 8, "feasible_evals": 8,
+            "best_config": dict(cfg), "best_score_us": us})
+    return job
+
+
+def test_coordinator_gate_checks_winners_on_the_card(cuda_device):
+    """The coordinator's default gate runs on the card: an honest matmul
+    winner is assembled with the ``verified`` stamp, and the faulty
+    kernel's wrong winner is vetoed there for its honest runner-up."""
+    from repro_torch.core.registry import register, unregister
+    from repro_torch.distrib import MemoryTransport
+    from repro_torch.fleet import ControlBus, Coordinator
+    from repro_torch.sandbox import clear_verdict_cache, make_faulty_kernel
+
+    clear_verdict_cache()
+    bus = ControlBus(MemoryTransport())
+    coord = Coordinator(bus)
+    assert coord.oracle.device.type == "cuda"
+    mm = get_kernel("matmul")
+    cfg = mm.default_config() | {"split_k": 2}
+    _fleet_job(bus, "matmul", (512, 512, 1024), "float32",
+               [(mm.default_config(), 60.0), (cfg, 50.0)])
+    faulty = make_faulty_kernel()
+    register(faulty)
+    try:
+        _fleet_job(bus, faulty.name, (64, 64), "float32",
+                   [({"scale": 1, "fault": "wrong"}, 10.0),
+                    ({"scale": 1, "fault": "none"}, 20.0)])
+        k3 = _build.CUDA_KERNELS["matmul"]
+        before = k3.launches
+        records = {r.config.get("fault", "matmul"): r
+                   for r in coord.assemble()}
+        assert k3.launches > before
+    finally:
+        unregister(faulty.name)
+        clear_verdict_cache()
+    assert records["matmul"].config == cfg
+    assert records["matmul"].oracle_verified() is not None
+    assert records["none"].oracle_verified() is not None
+    assert "wrong" not in records
+    statuses = [v.status for _, _, v in coord.oracle.checks]
+    assert statuses.count("numerics-mismatch") == 1
+
+
+def test_pull_sync_refreshes_ops_flash_kernel(cuda_device, tmp_path,
+                                              monkeypatch):
+    """A pull that brings a flash record refreshes ops' WisdomKernel: the
+    next launch selects the pulled record at tier exact."""
+    from repro_torch.core import Wisdom, WisdomRecord
+    from repro_torch.distrib import MemoryTransport, PullSync, WisdomStore
+    from repro_torch.kernels import ops
+
+    monkeypatch.setenv("KERNEL_LAUNCHER_WISDOM_DIR", str(tmp_path))
+    ops.reload_wisdom()
+    fa = ops.fa_causal_kernel
+    problem = (8, 8, 256, 128)
+    q, k, v = [a.to(cuda_device) for a in
+               fa.builder.make_probe_args(problem, "bfloat16")]
+    fa(q, k, v)
+    assert fa.stats[-1].tier != "exact"
+    cfg = fa.builder.default_config() | {"block_q": 128, "block_k": 128,
+                                         "threads": 256}
+    transport = MemoryTransport()
+    transport.publish(fa.builder.name, Wisdom(fa.builder.name, [
+        WisdomRecord(device_kind=fa.device_kind,
+                     device_family=GPU_H100.family, problem_size=problem,
+                     dtype="bfloat16", config=cfg, score_us=12.0,
+                     provenance={"source": "fleet"})]).to_doc())
+    sync = PullSync(WisdomStore(tmp_path), transport, kernels=[fa])
+    assert sync.pull().records_out == 1
+    got = fa(q, k, v)
+    st = fa.stats[-1]
+    monkeypatch.delenv("KERNEL_LAUNCHER_WISDOM_DIR")
+    ops.reload_wisdom()
+    assert st.tier == "exact" and st.config == cfg
+    want = fa.builder.make_reference()(q, k, v)
+    assert verify_outcome(got, want, "bfloat16").ok
+
+
+def test_serve_engine_reports_sync_pulls_on_card(cuda_device, tmp_path):
+    from repro_torch.core import Wisdom, WisdomRecord
+    from repro_torch.distrib import MemoryTransport, PullSync, WisdomStore
+    from repro_torch.serve import Request, ServeEngine
+
+    model, params = _small_lm(cuda_device, "bfloat16")
+    transport = MemoryTransport()
+    transport.publish("matmul", Wisdom("matmul", [WisdomRecord(
+        device_kind="gpu-h100", device_family=GPU_H100.family,
+        problem_size=(512, 512, 1024), dtype="float32",
+        config=get_kernel("matmul").default_config(), score_us=50.0,
+        provenance={"source": "fleet"})]).to_doc())
+    sync = PullSync(WisdomStore(tmp_path), transport, interval=8)
+    eng = ServeEngine(model, params, n_slots=2, max_seq=64, sync=sync)
+    rng = np.random.default_rng(0)
+    for rid in range(4):
+        assert eng.submit(Request(rid, rng.integers(
+            0, model.cfg.vocab, 8 + rid, dtype=np.int32), max_new_tokens=5))
+    rep = eng.run()
+    assert rep.requests_completed == 4
+    assert rep.sync_pulls == sync.pulls == (rep.steps + 7) // 8 >= 1
+    assert rep.sync_failures == 0
+    assert len(WisdomStore(tmp_path).load("matmul")) == 1

@@ -3,8 +3,8 @@
 snapshot and trace JSON and the same health report in both packages, and
 the port's launch path and serving engine report the reference's series.
 
-Counterparts of ``tests/test_obs.py``, but for the tests that need the
-fleet or sync layers, which are not ported (``--bus`` raises instead).
+Counterparts of ``tests/test_obs.py``; its fleet-health and lease cases
+are in ``tests/test_torch_fleet.py``.
 """
 
 from __future__ import annotations
@@ -511,13 +511,67 @@ def test_cli_report_snapshot_trace(tmp_path, capsys):
     assert main(["trace", str(bad)]) == 1
 
 
-def test_cli_bus_and_demo_fleet_raise_until_the_fleet_is_ported(tmp_path):
+def test_cli_report_bus_is_the_references(tmp_path, capsys):
+    """``report --bus DIR`` renders every snapshot published on a fleet bus
+    directory: the same bytes as the reference on the same snapshots."""
+    from repro.distrib.sync import DirectoryTransport as RefTransport
+    from repro.fleet import ControlBus as RefBus
+    from repro.fleet.health import publish_metrics as ref_publish
+    from repro.obs.cli import main as ref_main
+    from repro_torch.distrib.sync import DirectoryTransport
+    from repro_torch.fleet import ControlBus
+    from repro_torch.fleet.health import publish_metrics
     from repro_torch.obs.cli import main
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["report", "--bus", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["demo", "--fleet", "--device", "cpu",
-              "--out", str(tmp_path / "d")])
+
+    outs = []
+    for tag, bus_cls, transport_cls, publish, registry_cls, cli in (
+            ("ref", RefBus, RefTransport, ref_publish,
+             ro.MetricsRegistry, ref_main),
+            ("port", ControlBus, DirectoryTransport, publish_metrics,
+             MetricsRegistry, main)):
+        bus = bus_cls(transport_cls(tmp_path / tag))
+        publish(bus, "host-1", _health(registry_cls()))
+        r2 = registry_cls()
+        r2.counter("select.tier", kernel="matmul",
+                   scenario="gpu-h100|64x64x64|float32",
+                   tier="default").inc(2)
+        publish(bus, "host-2", r2)
+        assert cli(["report", "--bus", str(tmp_path / tag)]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert "gpu-h100|64x64x64|float32" in outs[1]
+
+
+def test_cli_demo_fleet_on_cpu_matches_the_references(tmp_path, capsys):
+    """``demo --fleet --device cpu``: the bus-aggregated snapshot carries
+    the reference demo's fleet, sandbox and selection series (the port's
+    scenarios name the host's kind where the reference's name TPUs; the
+    timing histograms are this run's)."""
+    from repro.obs.cli import main as ref_main
+    from repro_torch.obs.cli import main
+    assert ref_main(["demo", "--out", str(tmp_path / "ref")]) == 0
+    ref_out = capsys.readouterr().out
+    assert main(["demo", "--fleet", "--device", "cpu",
+                 "--out", str(tmp_path / "port")]) == 0
+    out = capsys.readouterr().out
+    assert out.replace(str(tmp_path / "port"), "D").split("\n")[:4] == \
+        ref_out.replace(str(tmp_path / "ref"), "D").split("\n")[:4]
+
+    def series(tag):
+        snap = load_snapshot(tmp_path / tag / "fleet-snapshot.json")
+        out = {}
+        for section in ("counters", "gauges"):
+            for key, value in snap[section].items():
+                for kind in ("tpu-v5e", "tpu-v4"):
+                    key = key.replace(f"scenario={kind}|", "scenario=cpu|")
+                out[key] = value
+        return out
+
+    ref, port = series("ref"), series("port")
+    assert port == ref
+    assert port["fleet.jobs{event=assembled}"] == 1
+    assert port["fleet.shard_evals{worker=w0}"] + \
+        port["fleet.shard_evals{worker=w1}"] == 8
 
 
 def test_demo_on_cpu_covers_every_tier(tmp_path, capsys):
@@ -536,7 +590,10 @@ def test_demo_on_cpu_covers_every_tier(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.prof",
-                                    "repro_torch.core.export"])
+                                    "repro_torch.core.export",
+                                    "repro_torch.distrib",
+                                    "repro_torch.fleet",
+                                    "repro_torch.wisdom"])
 def test_importing_pulls_in_neither_jax_nor_repro(module):
     script = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"

@@ -345,8 +345,9 @@ def test_demo_gauntlet_passes_on_the_host():
     report = run_demo(timeout_s=5.0, device="cpu")
     assert report["problems"] == [] and report["pass"] is True
     assert report["bad_promotions"] == 0
-    assert report["legs"] == ["sandbox", "oracle", "online", "transfer"]
-    assert report["legs_not_ported"] == ["fleet"]
+    assert report["legs"] == ["sandbox", "oracle", "online", "fleet",
+                              "transfer"]
+    assert report["legs_not_ported"] == []
     assert report["sandbox"]["hang"]["status"] == "timeout"
     assert report["sandbox"]["segv"]["exit_cause"].startswith("signal:")
     assert report["oracle"]["wrong"]["status"] == "numerics-mismatch"
@@ -356,17 +357,35 @@ def test_demo_gauntlet_passes_on_the_host():
     # runner-up, as the reference's does
     assert report["paths"]["transfer"] == {"recorded": "none",
                                            "score_us": 101.0}
+    assert report["paths"]["fleet"] == {"assembled": 1, "rejected": 1,
+                                        "done_state": "assembled"}
 
 
-@pytest.mark.parametrize("leg", ["fleet", "transfer"])
+def test_fleet_path_is_the_references(faulty):
+    """The fleet leg: the wrong config wins a shard and the cross-shard
+    comparison; the coordinator's gate vetoes it and assembles the honest
+    shard winner, in both packages alike."""
+    from repro.sandbox.demo import _fleet_path as ref_fleet_path
+    from repro_torch.sandbox.demo import _fleet_path
+    rb = ref_faulty(hang_s=3600.0)
+    ref_register(rb)
+    ref_clear_cache()
+    try:
+        want = ref_fleet_path(rb, RefOracleGate())
+    finally:
+        ref_unregister(rb.name)
+        ref_clear_cache()
+    got = _fleet_path(faulty, OracleGate(device="cpu"), "cpu")
+    assert got == want == ({"assembled": 1, "rejected": 1,
+                            "done_state": "assembled"}, [], 0)
+
+
+@pytest.mark.parametrize("leg", ["transfer"])
 def test_demo_legs_that_wait_for_their_layers_raise(leg, faulty):
-    """The fleet leg still waits for ``fleet/`` and raises; the transfer
-    leg is ported: its records go through the gate on the host, which
+    """No leg waits for its layer any more (``UNPORTED_LEGS`` is empty);
+    the transfer leg's records go through the gate on the host, which
     vetoes the wrong top prediction."""
-    if leg in UNPORTED_LEGS:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            run_demo(device="cpu", **{leg: True})
-        return
+    assert leg not in UNPORTED_LEGS == ()
     from repro_torch.sandbox.demo import _transfer_path
     report, problems, bad = _transfer_path(faulty, OracleGate(), "cpu")
     assert (report, problems, bad) == (
