@@ -137,10 +137,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    printed; (5) phase 8 item 2's K2b promotion with a ``PushSync``
    broadcast hook, served by a second host's pull at tier exact; (6)
    ``python -m repro_torch.wisdom`` inspect, validate and diff over the
-   phase's stores.
+   phase's stores;
+11. training: (a) codeqwen1.5-7b at full width cut to 2 layers, bf16,
+   ``build_model(remat=True)``, ``make_train_step`` with 2 microbatches
+   of 2 x 2048 tokens (K4 at BH 64 x S 2048 x D 128 under
+   ``FlashAttentionFn``, forward and remat recompute: 8 calls a step),
+   ``TrainDriver`` for 8 steps with an online tuner ticked on the first
+   4, from an empty wisdom dir: each step's loss and seconds, tokens/s
+   over steps 5-8, peak memory, one more step under the profiler (device
+   busy share, the host's wait in event syncs), K4's calls, tiers and
+   launches, the online outcome, and the final checkpoint (disk space
+   read first; size, save and restore seconds, restored bit for bit);
+   (b) one layer's attention input from the trained weights through
+   ``ops.attention`` (K4 + ``FlashAttentionFn``) and through
+   ``ref.attention_ref``, both under autograd, in bfloat16 (wgmma) and
+   float32 (mma): output and q/k/v gradients within the LM slice's bf16
+   bound and 1e-3 in f32; (c) two children started together: this script
+   with ``--train-resume-child`` (the same arch reduced to d_model 256, d_head
+   128, seq 128, f32, deterministic algorithms and
+   ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts: a run killed by
+   ``InjectedFault`` at step 5 and resumed from step 4 ends bit for bit
+   where an uninterrupted run does) and ``python -m
+   repro_torch.examples.train_lm --steps 30`` (the mean loss of its last
+   5 steps below its first 5).
 
-Launch counts are set to 0 just before each path (phases 3-4, phase 5) and
-read just after; every kernel of the path must have launched there. The
+Launch counts are set to 0 just before each path (phases 3-4, phase 5,
+phase 11a's driver run) and read just after; every kernel of the path
+must have launched there. The
 last two lines are the ``kernels`` JSON (each kernel's launches on its path,
 in all and by body and dtype) and ``{"ok": true, "device": ...}``.
 With no card, or without the rest of the repository beside it, the script
@@ -151,7 +174,9 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -170,6 +195,9 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import tree  # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
+                                    latest_step, load_checkpoint)
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import (WisdomKernel, current_device_kind,  # noqa: E402
                               get_kernel, list_captures)
@@ -180,6 +208,7 @@ from repro_torch.core.export import (StaticKernel, export_header,  # noqa: E402
 from repro_torch.core.builder import args_meta  # noqa: E402
 from repro_torch.core.registry import register, unregister  # noqa: E402
 from repro_torch.core.scenario import MISS_TIERS, format_key  # noqa: E402
+from repro_torch.data import SyntheticTokenDataset  # noqa: E402
 from repro_torch.core.wisdom import (TRANSFER_MIN_CONFIDENCE,  # noqa: E402
                                      WISDOM_DIR_ENV, Wisdom)
 from repro_torch.distrib import (DirectoryTransport,  # noqa: E402
@@ -193,11 +222,13 @@ from repro_torch.fleet.cli import main as fleet_cli  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
 from repro_torch.online import enable_online_tuning  # noqa: E402
 from repro_torch.online.promotion import PromotionPipeline  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.prof import (DEFAULT_TRAIN_EVERY, PROF_ENV,  # noqa: E402
                               classify_dataset, process_profiler,
                               profile_from_workload, rerank_gate,
@@ -210,7 +241,10 @@ from repro_torch.sandbox import (FAULT_PARAM, KernelTrial,  # noqa: E402
 from repro_torch.sandbox import gate as gate_module  # noqa: E402
 from repro_torch.sandbox.demo import (EXPECTED_VERDICTS,  # noqa: E402
                                       run_fault_modes)
+from repro_torch.runtime import InjectedFault, TrainDriver  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.train import (init_train_state,  # noqa: E402
+                               make_train_step, move_batch)
 from repro_torch.transfer import (fraction_of_optimum,  # noqa: E402
                                   holdout_report, transfer_scenario)
 from repro_torch.transfer.cli import main as transfer_cli  # noqa: E402
@@ -1028,7 +1062,12 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6,
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    # the host's wait in cudaEventSynchronize (WisdomKernel's per-launch
+    # sync) inside the window
+    sync_ms = sum(e.cpu_time_total for e in prof.key_averages()
+                  if e.key == "cudaEventSynchronize") / 1e3
     res = {"device_ms_per_step": busy / steps,
+           "event_sync_ms_per_step": sync_ms / steps,
            "profiled_wall_ms_per_step": wall * 1e3 / steps,
            "top": [(e.key[:70], round(e.self_device_time_total / 1e3
                                       / steps, 4)) for e in kernels[:top]]}
@@ -2273,6 +2312,347 @@ def phase_fleet(tmp: Path, microhh_wisdom: Path, lm_wisdom: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ training slice
+
+#: Phase 11 (a): codeqwen1.5-7b at full width cut to 2 layers (32 would
+#: need ~98 GB of parameters, gradients and f32 moments), bf16, 4 x 2048
+#: tokens a step in 2 microbatches, so each microbatch runs K4 at BH 64 x
+#: S 2048 x D 128; 8 steps, the online tick on the first 4.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 4, 2048, 2
+TRAIN_STEPS, TRAIN_WARMUP = 8, 4
+#: K4 launches a step: each layer's forward and its remat recompute, in
+#: each microbatch.
+TRAIN_K4_PER_STEP = 2 * TRAIN_LAYERS * TRAIN_MICRO
+#: (b) float32 output and gradients (K4's mma body) against the plain
+#: version's autograd: rtol = 1e-3, atol = 1e-3 x max|ref|, as phase 5a
+#: holds f32 prefill logits; bf16 takes the LM slice's LM_BF16_TOL. Both
+#: backwards are the plain version's, so the gradients differ only by
+#: summation order (the flattened heads).
+TRAIN_F32_TOL = 1e-3
+#: (c): a config that still reaches K4 (d_head 128, seq 128), float32.
+TRAIN_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2,
+                   d_head=128, d_ff=512, vocab=512)
+#: chip_smoke.py runs itself with this flag as (c)'s crash-and-resume child.
+TRAIN_RESUME_FLAG = "--train-resume-child"
+#: Seconds a phase-11 child may run (it imports torch first).
+TRAIN_PROC_TIMEOUT_S = 300
+
+
+class TimedCheckpoints(CheckpointManager):
+    """The driver's checkpoint manager, with each save's seconds."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.save_s: list[float] = []
+
+    def save(self, step, state, extra_meta=None):
+        t0 = time.perf_counter()
+        path = super().save(step, state, extra_meta)
+        self.save_s.append(time.perf_counter() - t0)
+        return path
+
+
+def train_full_width(tmp: Path) -> tuple:
+    """Phase 11 (a): ``TrainDriver`` over ``make_train_step`` at full
+    width; returns its readings, the model, the final state and the
+    dataset ((b) reads the last three)."""
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    kern = ops.fa_causal_kernel
+    cfg = replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
+    n_params = n_elements(build_model(cfg, device="meta").init())
+    need = n_params * (2 + 4 + 4)       # bf16 parameters, f32 m and v
+    disk = shutil.disk_usage(tmp)
+    print(f"train (a) a checkpoint of {n_params / 1e9:.3f} B parameters "
+          f"takes ~{need / 1e9:.2f} GB; {tmp} has {disk.free / 1e9:.1f} GB "
+          f"free of {disk.total / 1e9:.1f}", flush=True)
+    check(disk.free > 1.1 * need, f"the machine cannot hold one checkpoint:"
+          f" {disk.free / 1e9:.1f} GB free, {need / 1e9:.2f} GB needed")
+    model = build_model(cfg, device="cuda", remat=True)
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=2, total=TRAIN_STEPS))
+    ds = SyntheticTokenDataset(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=17)
+    wisdom = tmp / "train-wisdom"
+    ckpt = TimedCheckpoints(tmp / "train-ckpt", keep=1,
+                            save_every=TRAIN_STEPS + 1)
+    problem = (TRAIN_BATCH // TRAIN_MICRO * cfg.n_heads,
+               TRAIN_BATCH // TRAIN_MICRO * cfg.n_kv_heads, TRAIN_SEQ,
+               cfg.d_head)
+    out = {"n_params": n_params}
+    with quickstart._env(**{WISDOM_DIR_ENV: str(wisdom)}):
+        ops.reload_wisdom()
+        svc = enable_online_tuning(kern, objective="wallclock", seed=0,
+                                   wisdom_dir=wisdom)
+        step_fn = make_train_step(model, opt, microbatches=TRAIN_MICRO,
+                                  online=svc,
+                                  online_warmup_steps=TRAIN_WARMUP)
+        driver = TrainDriver(model=model, optimizer=opt, train_step=step_fn,
+                             dataset=ds, ckpt=ckpt, total_steps=TRAIN_STEPS,
+                             log_every=TRAIN_STEPS)
+        n0 = len(kern.stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        try:
+            run = driver.run(torch.Generator(device="cuda").manual_seed(0))
+        finally:
+            kern.attach_online(None)
+        out["launches"] = {"flash_attention": fa.launches}
+        out["by_body"] = dict(flash_attention.BODY_LAUNCHES)
+        stats = kern.stats[n0:]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        state = run["state"]
+        # one more step under the profiler (online detached): device busy
+        # time, and the host's wait in the per-launch event syncs
+        batch = move_batch(ds.batch(TRAIN_STEPS), "cuda")
+        out["profile"] = device_profile(lambda: step_fn(state, batch),
+                                        f"train step ({LM_ARCH}, "
+                                        f"{TRAIN_LAYERS} layers)",
+                                        own="fa_wgmma_kernel")
+    ops.reload_wisdom()
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train (a) losses {losses}")
+    want = TRAIN_K4_PER_STEP * TRAIN_STEPS
+    tiers = Counter(s.tier for s in stats)
+    check(len(stats) == want, f"train (a) launched K4 {len(stats)} times "
+          f"through the WisdomKernel, want {want}")
+    check(out["launches"]["flash_attention"] >= want,
+          f"train (a) counted {out['launches']} K4 launches, want >= {want}")
+    steady = [h["s"] for h in hist[TRAIN_WARMUP:]]
+    out |= {"losses": losses, "step_s": [h["s"] for h in hist],
+            "tok_s_steps_5_8": TRAIN_BATCH * TRAIN_SEQ * len(steady)
+            / sum(steady), "k4_calls": len(stats), "tiers": dict(tiers),
+            "extra_k4_launches": out["launches"]["flash_attention"] - want}
+    out["busy_share"] = (out["profile"]["device_ms_per_step"]
+                         / (statistics.median(steady) * 1e3))
+    st = svc.state(problem, cfg.compute_dtype)
+    ends = [e[0] for e in svc.events if e[0] in (
+        "promote", "keep-incumbent", "oracle-reject", "no-candidates")]
+    out["online"] = {
+        "activated": st is not None,
+        "finished": bool(st is not None and st.finished),
+        "outcome": ends[-1] if ends else "unfinished",
+        "trial_launches": tiers.get("trial", 0),
+        "events": dict(Counter(e[0] for e in svc.events))}
+    final = Path(run["final_checkpoint"])
+    like = init_train_state(build_model(cfg, device="meta"), opt)
+    (restored, manifest), load_s = timed(lambda: load_checkpoint(
+        ckpt.directory, like=like, device="cuda"))
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(tree.leaves(state), tree.leaves(restored)))
+    check(same and manifest["step"] == TRAIN_STEPS,
+          "train (a) the restored checkpoint differs from the saved state")
+    out["ckpt"] = {"gb": sum(p.stat().st_size for p in final.iterdir())
+                   / 1e9, "save_s": ckpt.save_s[-1], "restore_s": load_s,
+                   "leaves": len(manifest["leaves"]), "bit_exact": same}
+    del restored, like
+    print(f"train (a) {LM_ARCH} full width x {TRAIN_LAYERS} layers, bf16, "
+          f"{n_params / 1e9:.3f} B parameters, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step in {TRAIN_MICRO} microbatches, remat: losses "
+          f"{[round(x, 4) for x in losses]}; step seconds "
+          f"{[round(x, 3) for x in out['step_s']]}; "
+          f"{out['tok_s_steps_5_8']:.0f} tokens/s over steps 5-8; peak "
+          f"device memory {out['peak_gb']:.1f} GB", flush=True)
+    print(f"train (a) device busy {out['profile']['device_ms_per_step']:.1f} "
+          f"ms of a {statistics.median(steady) * 1e3:.1f} ms step "
+          f"({out['busy_share']:.0%}); the host waited "
+          f"{out['profile']['event_sync_ms_per_step']:.1f} ms in event "
+          f"syncs", flush=True)
+    print(f"train (a) K4: {len(stats)} calls through the WisdomKernel "
+          f"({TRAIN_K4_PER_STEP} a step: forward and recompute), tiers "
+          f"{json.dumps(dict(tiers))}, {out['launches']['flash_attention']} "
+          f"launches ({out['extra_k4_launches']} beyond the calls: the "
+          f"promotion gate's), by body {json.dumps(out['by_body'])}; online "
+          f"{json.dumps(out['online'])}", flush=True)
+    print(f"train (a) final checkpoint {out['ckpt']['gb']:.2f} GB, "
+          f"{out['ckpt']['leaves']} leaves: saved in "
+          f"{out['ckpt']['save_s']:.1f} s, restored in "
+          f"{out['ckpt']['restore_s']:.1f} s, bit-exact", flush=True)
+    return out, model, state, ds
+
+
+def train_gradients(model, params, ds) -> dict:
+    """Phase 11 (b): one layer's attention input at the full-width shape
+    through ``ops.attention`` (K4 + ``FlashAttentionFn``) and through
+    ``ref.attention_ref``, both under autograd; q/k/v gradients compared,
+    in bfloat16 (wgmma body) and float32 (mma body)."""
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    cfg = model.cfg
+    b = TRAIN_BATCH // TRAIN_MICRO
+    tokens = move_batch(ds.batch(0), "cuda")["tokens"][:b]
+    with torch.no_grad():
+        blk = params["layers"][0]
+        h = apply_norm(cfg, blk["ln1"], model._embed(params, tokens))
+        qkv = attention._qkv(cfg, blk["attn"], h,
+                             torch.arange(TRAIN_SEQ, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for dtype, body in (("bfloat16", "wgmma"), ("float32", "mma")):
+        q, k, v = (t.to(DTYPES[dtype]).contiguous() for t in qkv)
+        ct = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+        got = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        bodies0 = dict(fa.body_launches)
+        o = ops.attention(*got, causal=True)
+        check(flash_attention.through_flash_fn(o), f"train (b) {dtype}: "
+              f"ops.attention's output does not carry FlashAttentionFn")
+        ran = {x: n - bodies0.get(x, 0) for x, n in fa.body_launches.items()
+               if n != bodies0.get(x, 0)}
+        check(ran == {body: 1}, f"train (b) {dtype} ran {ran}, want one "
+              f"{body} launch")
+        o.backward(ct)
+        want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        w = ref.attention_ref(*want, causal=True)
+        w.backward(ct)
+        pairs = {"out": (o.detach(), w.detach()),
+                 **{"d" + n: (a.grad, r.grad)
+                    for n, a, r in zip("qkv", got, want)}}
+        errs = {}
+        for name, (a, r) in pairs.items():
+            errs[name] = e = logit_errors(a, r)
+            ok = (lm_bf16_ok(e) if dtype == "bfloat16" else torch.allclose(
+                a.double(), r.double(), rtol=TRAIN_F32_TOL,
+                atol=TRAIN_F32_TOL * e["max_abs_ref"]))
+            check(ok, f"train (b) {dtype} {name}: {e}")
+        out[dtype] = errs
+        print(f"train (b) {dtype} ({body} body), BH {q.shape[0] * q.shape[1]}"
+              f" x S {TRAIN_SEQ} x D {cfg.d_head}, causal: K4 + autograd vs "
+              f"the plain version's autograd {json.dumps(errs)} ok",
+              flush=True)
+        del got, want, o, w
+    return out
+
+
+def train_resume_child(tmp: Path) -> int:
+    """Phase 11 (c)'s child: under deterministic algorithms, an
+    uninterrupted 8-step run of the small config, and a run killed by
+    ``InjectedFault`` at step 5 then resumed from its step-4 checkpoint;
+    prints one JSON line and exits 0 when the final states are equal bit
+    for bit."""
+    torch.use_deterministic_algorithms(True)
+    cfg = get_arch(LM_ARCH).reduced(**TRAIN_SMALL)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+
+    def build(d, fault=None):
+        model = build_model(cfg, device="cuda", remat=True)
+        opt = AdamW(lr=cosine_schedule(1e-3, warmup=2, total=8))
+        ds = SyntheticTokenDataset(vocab=cfg.vocab, seq=128, global_batch=4,
+                                   seed=5)
+        return TrainDriver(
+            model=model, optimizer=opt,
+            train_step=make_train_step(model, opt, microbatches=2),
+            dataset=ds, ckpt=CheckpointManager(d, keep=2, save_every=4),
+            total_steps=8, fault_injector=fault, log_every=100)
+
+    def bomb(step):
+        if step == 5:
+            raise InjectedFault("simulated node failure at step 5")
+
+    t0 = time.perf_counter()
+    whole = build(tmp / "whole").run(7)
+    n_whole = fa.launches
+    try:
+        build(tmp / "crash", fault=bomb).run(7)
+        crashed = False
+    except InjectedFault:
+        crashed = True
+    resumed_from = latest_step(tmp / "crash")
+    n_crash = fa.launches - n_whole
+    resumed = build(tmp / "crash").run(7)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        tree.leaves(whole["state"]), tree.leaves(resumed["state"])))
+    res = {"crashed": crashed, "resumed_from": resumed_from,
+           "bit_exact": same, "k4_launches": {
+               "whole": n_whole, "crashed": n_crash,
+               "resumed": fa.launches - n_whole - n_crash},
+           "losses": [h["loss"] for h in whole["history"]],
+           "resumed_steps": [h["step"] for h in resumed["history"]],
+           "seconds": time.perf_counter() - t0}
+    print("resume " + json.dumps(res), flush=True)
+    return 0 if (crashed and resumed_from == 4 and same
+                 and res["resumed_steps"] == [4, 5, 6, 7]) else 1
+
+
+def train_children(tmp: Path) -> list:
+    """Phase 11 (c)'s two children, started together: the crash and
+    resume check (this script with TRAIN_RESUME_FLAG) and the entry point
+    ``python -m repro_torch.examples.train_lm --steps 30``. cuBLAS reads
+    CUBLAS_WORKSPACE_CONFIG when it makes its handles, so it is set in the
+    children's environment, before any."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               **{WISDOM_DIR_ENV: str(tmp / "child-wisdom")})
+    argvs = {"resume": [str(ROOT / "chip_smoke.py"), TRAIN_RESUME_FLAG,
+                        str(tmp / "resume")],
+             "train_lm": ["-m", "repro_torch.examples.train_lm", "--steps",
+                          "30", "--ckpt-dir", str(tmp / "train_lm")]}
+    return [(name, time.perf_counter(), subprocess.Popen(
+        [sys.executable, *argv], env=env, cwd=tmp, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for name, argv in argvs.items()]
+
+
+def train_children_results(children: list) -> dict:
+    out = {}
+    for name, t0, proc in children:
+        try:
+            text, _ = proc.communicate(timeout=TRAIN_PROC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            raise RuntimeError(f"train (c) {name} child ran over "
+                               f"{TRAIN_PROC_TIMEOUT_S} s:\n{text[-3000:]}")
+        check(proc.returncode == 0, f"train (c) {name} child: rc "
+              f"{proc.returncode}\n{text[-4000:]}")
+        out[name] = {"seconds": time.perf_counter() - t0, "text": text}
+    line = [x for x in out["resume"]["text"].splitlines()
+            if x.startswith("resume ")][-1]
+    res = json.loads(line.removeprefix("resume "))
+    print(f"train (c) crash at step 5 and resume from step "
+          f"{res['resumed_from']} ({LM_ARCH} reduced to d_model "
+          f"{TRAIN_SMALL['d_model']}, d_head {TRAIN_SMALL['d_head']}, seq "
+          f"128, float32, deterministic algorithms): final state bit-exact "
+          f"{res['bit_exact']}; K4 launches {json.dumps(res['k4_launches'])}"
+          f"; child {out['resume']['seconds']:.1f} s", flush=True)
+    m = re.search(r"mean of the first 5 ([0-9.]+), of the last 5 ([0-9.]+)",
+                  out["train_lm"]["text"])
+    check(m is not None, f"train (c) train_lm printed no loss means:\n"
+          f"{out['train_lm']['text'][-3000:]}")
+    first, last = float(m.group(1)), float(m.group(2))
+    check(last < first, f"train (c) train_lm did not lower its loss: mean "
+          f"of the first 5 {first}, of the last 5 {last}")
+    head = out["train_lm"]["text"].splitlines()[0]
+    print(f"train (c) python -m repro_torch.examples.train_lm --steps 30 "
+          f"({head}): mean loss of the first 5 steps {first:.4f}, of the "
+          f"last 5 {last:.4f}; child {out['train_lm']['seconds']:.1f} s",
+          flush=True)
+    return {"resume": res, "train_lm": {"first5": first, "last5": last,
+                                        "seconds":
+                                        out["train_lm"]["seconds"]}}
+
+
+def phase_train(tmp: Path) -> dict:
+    """Phase 11: the training slice. (a) full-width training, its launch
+    counts read just after the driver's run; then (c)'s children start,
+    and (b) runs beside them on the trained parameters."""
+    t0 = time.perf_counter()
+    out, model, state, ds = train_full_width(tmp)
+    children = train_children(tmp)
+    try:
+        out["grad"] = train_gradients(model, state["params"], ds)
+        del model, state
+        torch.cuda.empty_cache()
+        out["children"] = train_children_results(children)
+    finally:
+        for _, _, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 (training) took {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2323,6 +2703,12 @@ def main() -> int:
         phase_online(wisdom / "microhh", Path(tmp))
         phase_recorded(Path(tmp))
         phase_fleet(Path(tmp), wisdom / "microhh", lm_wisdom)
+        train = phase_train(Path(tmp))
+        print(f"train-path launches: {json.dumps(train['launches'])}; "
+              f"flash_attention by body: {json.dumps(train['by_body'])}",
+              flush=True)
+        for name, n in train["launches"].items():
+            check(n > 0, f"{name} was not launched on the training path")
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"
@@ -2347,4 +2733,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == TRAIN_RESUME_FLAG:
+        sys.exit(train_resume_child(Path(sys.argv[2])))
     sys.exit(main())

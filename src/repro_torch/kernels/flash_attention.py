@@ -209,6 +209,47 @@ def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
     return o
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd: the forward is ``kernel``'s launch
+    (a :class:`WisdomKernel` of either builder, so selection, online
+    trials, capture and telemetry see it as any launch), the backward the
+    gradient of the plain version (``ref.attention_ref`` over the
+    flattened heads) recomputed from the saved inputs. The reference has
+    no backward kernel either: its training forward differentiates the
+    same plain function. On CPU tensors ``kernel`` runs the plain version,
+    so the host exercises the same wiring as the card.
+
+    ``ctx`` saves the inputs q, k, v, never the kernel's output, so under
+    ``torch.utils.checkpoint`` a recompute launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return kernel(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            out = _ref.flash_attention_ref_factory(ctx.causal)(*inputs)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad_out)
+        return dq, dk, dv, None, None
+
+
+def through_flash_fn(out: torch.Tensor) -> bool:
+    """Whether ``out``'s gradient passes through :class:`FlashAttentionFn`
+    (behind the views ``ops.attention`` ends with)."""
+    fn = out.grad_fn
+    while fn is not None:
+        if getattr(fn, "_forward_cls", None) is FlashAttentionFn:
+            return True
+        fn = fn.next_functions[0][0] if fn.next_functions else None
+    return False
+
+
 def _make_builder(causal: bool) -> KernelBuilder:
     name = "flash_attention_causal" if causal else "flash_attention_full"
     b = KernelBuilder(name, source="repro_torch.kernels.flash_attention")

@@ -78,7 +78,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     (``flash_attention.HEAD_DIMS``) go to the flash kernel (its plain
     version for CPU tensors); the rest run the full-featured plain
     ``ref.attention_ref`` on the tensors' device, as the reference runs its
-    oracle for them."""
+    oracle for them. The flash call goes through
+    ``flash_attention.FlashAttentionFn``: the kernel forward, the plain
+    version's gradient backward."""
     if q.shape[3] not in _fa_mod.HEAD_DIMS or not flashable(
             q, k, window=window, softcap=softcap, scale=scale,
             kv_offset=kv_offset):
@@ -91,4 +93,5 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     kf = k.reshape(B * Hkv, S, D).contiguous()
     vf = v.reshape(B * Hkv, S, D).contiguous()
     kernel = fa_causal_kernel if causal else fa_full_kernel
-    return kernel(qf, kf, vf).reshape(B, Hq, S, D)
+    of = _fa_mod.FlashAttentionFn.apply(qf, kf, vf, kernel, causal)
+    return of.reshape(B, Hq, S, D)

@@ -10,17 +10,18 @@ from .config import (ArchConfig, FULL_WINDOW, MLACfg, MambaCfg, MoECfg,
 from .transformer import DecoderLM
 
 
-def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
-                ) -> DecoderLM:
+def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
+                remat: bool = False) -> DecoderLM:
     """The decoder for ``cfg`` on ``device``. The default ``cuda`` raises
     without a card; pass ``cpu`` for the plain PyTorch versions, or
-    ``meta`` for shapes only. Encoder-decoder configs are not ported yet
+    ``meta`` for shapes only. ``remat`` checkpoints each layer's
+    activations in training. Encoder-decoder configs are not ported yet
     (ROADMAP.md queue 1 item 9)."""
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: EncDecLM is not ported yet (ROADMAP.md queue 1 "
             f"item 9)")
-    return DecoderLM(cfg, device=resolve_device(device))
+    return DecoderLM(cfg, device=resolve_device(device), remat=remat)
 
 
 __all__ = ["ArchConfig", "FULL_WINDOW", "MLACfg", "MambaCfg", "MoECfg",

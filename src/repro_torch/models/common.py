@@ -5,14 +5,14 @@ Parameters are plain nested dicts of tensors. Every init function draws
 from an explicit ``torch.Generator`` (``None`` on the ``meta`` device,
 where nothing is drawn) onto an explicit device. The reference's
 ``constrain_batch`` pins sharding on a device mesh; the port runs on one
-device and has no counterpart. ``chunked_ce_loss`` belongs to the training
-slice.
+device and has no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.builder import torch_dtype
 
@@ -130,3 +130,53 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ----------------------------------------------------------------- loss ----
+
+def _ce_chunk(xc, head, yc, mc, final_softcap, vocab_ok):
+    """Summed masked NLL of one sequence chunk: f32 logits, softcapped,
+    padded vocab columns at -1e30."""
+    logits = xc @ head.to(xc.dtype)
+    logits = softcap(logits.to(torch.float32), final_softcap)
+    if vocab_ok is not None:
+        logits = torch.where(vocab_ok, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return ((logz - gold) * mc).sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor | None = None,
+                    final_softcap: float | None = None, chunk: int = 512,
+                    valid_vocab: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy over seq chunks so (B, S, V) never materializes.
+
+    x: (B, S, D) final hidden states; head: (D, V); labels: (B, S).
+    ``valid_vocab``: real vocab size; columns beyond it (padding) are
+    excluded from the logsumexp. Each chunk runs under
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``, so
+    its (B, chunk, V) logits are recomputed in the backward, not kept.
+    Returns (sum_nll, sum_weight); caller divides.
+    """
+    B, S, _ = x.shape
+    V = head.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    vocab_ok = None
+    if valid_vocab is not None and valid_vocab < V:
+        vocab_ok = torch.arange(V, device=x.device) < valid_vocab
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        mc = mask[:, sl].to(torch.float32)
+        nll_sum = nll_sum + checkpoint(
+            _ce_chunk, x[:, sl], head, labels[:, sl], mc, final_softcap,
+            vocab_ok, use_reentrant=False)
+        w_sum = w_sum + mc.sum()
+    return nll_sum, w_sum

@@ -17,19 +17,26 @@ Caches keep the reference's layout: ``{"pos", "kv": {"k", "v"}}`` with
 ``(L, B, Hkv, max_seq, D)`` tensors, written in place; ``pos`` is a host
 int. An optional ``cache["start"]`` (B,) tensor scopes decode attention per
 slot (token-level serving). MoE, MLA, mamba, rwkv, vision, enc-dec and
-learned-position stacks raise ``NotImplementedError``; ``loss`` waits for
-the training slice.
+learned-position stacks raise ``NotImplementedError``.
 
-Public surface: init / forward / init_cache / prefill / decode_step.
+Training: ``loss`` is the reference's (chunked cross entropy over the
+final hidden states). With ``remat=True`` each layer of ``forward`` runs
+under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
+its scanned layer body in ``jax.checkpoint``; the backward recomputes
+the layer, flash launch included
+(``kernels.flash_attention.FlashAttentionFn``).
+
+Public surface: init / forward / loss / init_cache / prefill / decode_step.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
-from .common import (apply_mlp, apply_norm, cdt, dense_init, dt, embed_init,
-                     init_mlp, init_norm, softcap)
+from .common import (apply_mlp, apply_norm, cdt, chunked_ce_loss,
+                     dense_init, dt, embed_init, init_mlp, init_norm, softcap)
 from .config import ArchConfig
 
 Params = dict
@@ -62,10 +69,12 @@ class DecoderLM:
     """Dense decoder LM on one torch device, which the caller names
     (``build_model`` resolves it: ``cuda`` unless told otherwise)."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device | str):
+    def __init__(self, cfg: ArchConfig, device: torch.device | str,
+                 remat: bool = False):
         check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.remat = remat      # activation-checkpoint each layer
 
     # ------------------------------------------------------------ init ----
 
@@ -145,10 +154,30 @@ class DecoderLM:
         reference's auxiliary losses (zero for dense stacks)."""
         x = self._embed(p, tokens)
         for i, blk in enumerate(p["layers"]):
-            x = self._block_fwd(blk, x, self._window(i))
+            if self.remat:
+                x = checkpoint(self._block_fwd, blk, x, self._window(i),
+                               use_reentrant=False)
+            else:
+                x = self._block_fwd(blk, x, self._window(i))
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return apply_norm(self.cfg, p["final_norm"], x), {
             "moe_load_balance": zero, "moe_z_loss": zero}
+
+    # ------------------------------------------------------------ loss ----
+
+    def loss(self, p: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Mean next-token cross entropy over ``batch`` (tensors
+        ``tokens``, ``labels`` and, optionally, ``mask``): ``(total,
+        {"ce", "tokens", "loss"})``, the reference's metrics for a dense
+        stack (no MoE auxiliary terms)."""
+        cfg = self.cfg
+        x, _ = self.forward(p, batch["tokens"])
+        head = p["embed"].T if cfg.tie_embeddings else p["head"]
+        nll, w = chunked_ce_loss(x, head, batch["labels"], batch.get("mask"),
+                                 final_softcap=cfg.final_softcap,
+                                 valid_vocab=cfg.vocab)
+        ce = nll / torch.clamp(w, min=1.0)
+        return ce, {"ce": ce, "tokens": w, "loss": ce}
 
     # ---------------------------------------------------------- decode ----
 

@@ -819,3 +819,144 @@ def test_serve_engine_reports_sync_pulls_on_card(cuda_device, tmp_path):
     assert rep.sync_pulls == sync.pulls == (rep.steps + 7) // 8 >= 1
     assert rep.sync_failures == 0
     assert len(WisdomStore(tmp_path).load("matmul")) == 1
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.fixture()
+def empty_wisdom(tmp_path, monkeypatch):
+    """ops' kernels select from an empty wisdom dir: the default configs."""
+    from repro_torch.kernels import ops
+    monkeypatch.setenv("KERNEL_LAUNCHER_WISDOM_DIR", str(tmp_path / "w"))
+    ops.reload_wisdom()
+    yield
+    monkeypatch.delenv("KERNEL_LAUNCHER_WISDOM_DIR")
+    ops.reload_wisdom()
+
+
+@pytest.mark.parametrize("dtype,body", [("bfloat16", "wgmma"),
+                                        ("float32", "mma")])
+def test_flash_gradient_matches_plain_autograd_on_card(cuda_device,
+                                                       empty_wisdom, dtype,
+                                                       body):
+    """``ops.attention`` on CUDA tensors that want a gradient: its output
+    carries ``FlashAttentionFn``, K4 launches once in the body the dtype
+    selects, and the output and the q, k, v gradients match the plain
+    version's autograd on the same tensors. bfloat16: max abs <= 0.05 x
+    max(1, max|ref|) and relative L2 <= 0.05 (the LM slice's bound);
+    float32: rtol = 1e-3, atol = 1e-3 x max|ref|. A K4 output without a
+    gradient fails the first assertion or leaves q.grad None."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dt = getattr(torch, dtype)
+    b, hq, hkv, s, d = 2, 4, 2, 256, 128
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dt)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    ct = torch.randn((b, hq, s, d), generator=g, device=cuda_device).to(dt)
+    got = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    n0, body0 = fa.launches, fa.body_launches.get(body, 0)
+    out = ops.attention(*got, causal=True)
+    assert flash_attention.through_flash_fn(out)
+    assert fa.launches == n0 + 1 and fa.body_launches[body] == body0 + 1
+    out.backward(ct)
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref.attention_ref(*want, causal=True).backward(ct)
+    assert fa.launches == n0 + 1          # the backward runs the plain one
+    pairs = [(out.detach(), ref.attention_ref(q, k, v, causal=True))]
+    pairs += [(a.grad, r.grad) for a, r in zip(got, want)]
+    for a, r in pairs:
+        a, r = a.double(), r.double()
+        top = float(r.abs().max())
+        if dtype == "bfloat16":
+            assert float((a - r).abs().max()) <= 0.05 * max(1.0, top)
+            assert float((a - r).norm() / r.norm()) <= 0.05
+        else:
+            torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-3 * top)
+
+
+def _small_train(device, remat=True):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = get_arch("codeqwen1.5-7b").reduced(
+        n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, d_head=128,
+        d_ff=512, vocab=512)
+    model = build_model(cfg, device=device, remat=remat)
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=1, total=4))
+    return model, opt, build_model(cfg, device="cpu").init(0)
+
+
+def test_train_step_on_card_matches_the_host(cuda_device, empty_wisdom):
+    """One ``make_train_step`` (2 microbatches, remat) at the small f32
+    config that reaches K4, on the card and on the CPU from the same
+    weights and batch: K4 launches 2 x 2 x 2 = 8 times (each layer's
+    forward and recompute, each microbatch); the loss and the gradient's
+    global norm within 1e-4 relative; each leaf of the first moment m,
+    which after one step is 0.1 x the clipped gradient and so linear in
+    it, within 1e-3 x max|host leaf| + 1e-9 (both sides are IEEE f32, K4
+    included; a gradient lost through attention leaves m's q/k/v leaves
+    at 0 and fails); every parameter within 2 lr + 1e-6 (Adam moves a
+    weight by about lr x sign(g) on its first step, and a near-zero
+    gradient can flip sign between the two devices' summation orders)."""
+    from repro_torch import tree
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.train import init_train_state, make_train_step
+
+    model, opt, params = _small_train(cuda_device)
+    host, _, _ = _small_train("cpu")
+    batch = SyntheticTokenDataset(vocab=512, seq=128, global_batch=4,
+                                  seed=2).batch(0)
+    states = []
+    for m, dev in ((model, cuda_device), (host, torch.device("cpu"))):
+        st = init_train_state(m, opt, 0)
+        st["params"] = tree.tree_map(lambda p: p.to(dev), params)
+        states.append(st)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    n0 = fa.launches
+    on_card, m1 = make_train_step(model, opt, microbatches=2)(states[0],
+                                                              batch)
+    assert fa.launches - n0 == 8
+    on_host, m2 = make_train_step(host, opt, microbatches=2)(states[1],
+                                                            batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m1[key]) - float(m2[key])) <= \
+            1e-4 * abs(float(m2[key])), key
+    for (path, a), b in zip(tree.leaves_with_paths(on_card["opt"]["m"]),
+                            tree.leaves(on_host["opt"]["m"])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-3 * float(b.abs().max()) + 1e-9, (path, err)
+    for (path, a), b in zip(tree.leaves_with_paths(on_card["params"]),
+                            tree.leaves(on_host["params"])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 2 * 3e-3 + 1e-6, (path, err)
+
+
+def test_remat_gives_the_same_gradients_on_card(cuda_device, empty_wisdom):
+    """``build_model(..., remat=True)`` on the card: the same gradients
+    as ``remat=False`` (max abs <= 1e-5 x max(1, max|g|): the recompute
+    repeats the same kernels; the embedding backward's atomic adds may
+    sum in another order), with K4 launched twice a layer instead of
+    once."""
+    from repro_torch import tree
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.train import move_batch
+
+    batch = move_batch(SyntheticTokenDataset(
+        vocab=512, seq=128, global_batch=2, seed=4).batch(0), cuda_device)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    grads = {}
+    for remat, per_layer in ((False, 1), (True, 2)):
+        model, _, params = _small_train(cuda_device, remat=remat)
+        params = tree.tree_map(
+            lambda p: p.to(cuda_device).requires_grad_(True), params)
+        n0 = fa.launches
+        loss, _ = model.loss(params, batch)
+        loss.backward()
+        assert fa.launches - n0 == per_layer * model.cfg.n_layers
+        grads[remat] = tree.leaves(tree.tree_map(lambda p: p.grad, params))
+    for a, b in zip(grads[False], grads[True]):
+        top = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, top)
