@@ -159,20 +159,52 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``InjectedFault`` at step 5 and resumed from step 4 ends bit for bit
    where an uninterrupted run does) and ``python -m
    repro_torch.examples.train_lm --steps 30`` (the mean loss of its last
-   5 steps below its first 5).
+   5 steps below its first 5);
+12. the zoo's attention families, one model at a time from an empty
+   wisdom directory, each freed before the next (the memory still
+   allocated is printed): (a) deepseek-moe-16b at full width and depth
+   (28 layers, 16.38 B parameters, bf16): prefill 4 x 2048 (K4 +28
+   launches each, all wgmma), 32 greedy decode steps, profiler windows
+   of one prefill and 4 decode steps (busy share, five largest kernels),
+   ``ServeEngine(mode="auto")`` picking token mode for 8 requests; at a
+   capacity factor of n_routed / top_k (no token drops), prefill of 512 +
+   2 decode steps against ``forward`` over the 514 tokens, in float32 at
+   full width with 4 layers (router free) and in bf16 on the full model
+   with forward's expert choices replayed (bf16 rounds the two paths'
+   router logits apart and flips near ties; with the routers free, the
+   share of (token, k) expert choices that differ is held to 15 % and
+   the logit errors are printed as findings); at the config's 1.25, K4
+   in the first layer at its MHA 16/16 shape against its plain version,
+   and the 4 x 2048 prefill with K4 against the same prefill with K4's
+   plain version, routers free, its share of differing expert choices
+   held to 15 %; (b) llama-3.2-vision-11b at
+   full width and depth (8 cross blocks with their gates set to 1.0, 32
+   self layers) with seeded (4, 576, 4096) image embeddings: prefill 4 x
+   2048 (K4 +32 each), 32 decode steps, the 512 + 2 check, and K4 in the
+   first self layer at its GQA 32/8 shape against its plain version; (c)
+   deepseek-v2-236b at full width cut to 3 layers (the dense MLA layer 0
+   and 2 MoE+MLA layers, 9.33 B parameters): prefill 2 x 2048 (no K4:
+   MLA's attention is plain), 16 absorbed decode steps, ``ServeEngine``
+   picking cohort mode for 4 requests, and the no-drop check.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5,
-phase 11a's driver run) and read just after; every kernel of the path
-must have launched there. The
+phase 11a's driver run) and read just after; phase 12 reads K4's
+launches around each model's path (its prefills, decode steps, profiler
+windows and serving), before that model's checks, and holds them to the
+number of prefills times the flash layers. Every
+kernel of the path must have launched there. The
 last two lines are the ``kernels`` JSON (each kernel's launches on its path,
-in all and by body and dtype) and ``{"ok": true, "device": ...}``.
+in all and by body and dtype; K4's include phase 12's) and ``{"ok": true,
+"device": ...}``.
 With no card, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -223,6 +255,7 @@ from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.common import apply_norm  # noqa: E402
 from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
@@ -2653,6 +2686,550 @@ def phase_train(tmp: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the zoo (12)
+
+ZOO_MOE = "deepseek-moe-16b"
+ZOO_VISION = "llama-3.2-vision-11b"
+ZOO_MLA = "deepseek-v2-236b"
+ZOO_BATCH, ZOO_SEQ, ZOO_DECODE = 4, 2048, 32
+#: deepseek-v2-236b at full width, cut in depth to its dense MLA layer 0
+#: and 2 MoE+MLA layers: 60 layers would need 472 GB in bfloat16.
+ZOO_MLA_LAYERS, ZOO_MLA_BATCH, ZOO_MLA_DECODE = 3, 2, 16
+#: The consistency checks: prefill of this many tokens, then 2 decode
+#: steps, against forward over the S + 2 tokens.
+ZOO_CHECK_SEQ = 512
+#: (a) 1 in float32: deepseek-moe at full width, cut to its dense layer
+#: and 3 MoE layers (full depth in f32 would need 65.5 GB of weights).
+ZOO_F32_LAYERS = 4
+#: Every cross block's gate, opened: the reference initialises it to 0,
+#: and tanh(0) = 0 would take the cross blocks out of the output.
+ZOO_GATE = 1.0
+#: The most (token, k) expert choices that may differ between two bf16
+#: paths of one MoE model with their routers free: bf16 flips near ties
+#: (4.9-5.7 % for deepseek-moe-16b, 0.5 % for deepseek-v2 on the card),
+#: while a router that diverges between the paths differs far more.
+ZOO_FLIP_LIMIT = 0.15
+
+
+def zoo_model(cfg, seed: int):
+    """``build_model(cfg)`` on the card with seeded random weights."""
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, sec = timed(lambda: model.init(
+        torch.Generator(device="cuda").manual_seed(seed)))
+    n = n_elements(params)
+    print(f"zoo {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n / 1e9:.3f} B parameters in {cfg.param_dtype} "
+          f"(ArchConfig.n_params {cfg.n_params() / 1e9:.3f} B), initialised "
+          f"on the card in {sec:.1f} s", flush=True)
+    return model, params, n
+
+
+def k4_snapshot() -> tuple:
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    return fa.launches, Counter(fa.body_dtype_launches)
+
+
+def k4_since(snap: tuple) -> tuple[int, Counter]:
+    """K4's launches since ``snap``, in all and by (body, dtype)."""
+    n, by = k4_snapshot()
+    return n - snap[0], by - snap[1]
+
+
+def zoo_prefills(model, params, tok, img, n_flash: int) -> tuple:
+    """A warm-up and two timed prefills of ``tok``; each must launch K4
+    ``n_flash`` times, all in the wgmma body. Returns (logits, cache, the
+    three runs' seconds)."""
+    cfg = model.cfg
+    secs = []
+    for _ in range(3):
+        cache = model.init_cache(tok.shape[0], tok.shape[1] + ZOO_DECODE)
+        snap = k4_snapshot()
+        (logits, cache), sec = timed(lambda: model.prefill(params, tok, cache,
+                                                           img=img))
+        n, by = k4_since(snap)
+        check(n == n_flash and by[("wgmma", "bfloat16")] == n_flash,
+              f"zoo {cfg.name} prefill launched K4 {n} times ({dict(by)}), "
+              f"want {n_flash}, all wgmma bfloat16")
+        secs.append(sec)
+    check(logits.shape == (tok.shape[0], 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"zoo {cfg.name} prefill logits not finite or of the wrong shape")
+    return logits, cache, secs
+
+
+def zoo_decode(model, params, cache, logits, steps: int) -> float:
+    """``steps`` greedy decode steps after a prefill; ms a step."""
+    cfg = model.cfg
+    start = int(cache["pos"])
+    state = {"cache": cache, "nxt": logits[:, -1].argmax(-1, keepdim=True)}
+
+    def run():
+        for _ in range(steps):
+            lg, state["cache"] = model.decode_step(params, state["cache"],
+                                                   state["nxt"])
+            state["nxt"] = lg[:, -1].argmax(-1, keepdim=True)
+        return lg
+
+    lg, sec = timed(run)
+    check(state["cache"]["pos"] == start + steps
+          and bool(torch.isfinite(lg[..., :cfg.vocab]).all()),
+          f"zoo {cfg.name} decode logits not finite, or the cursor is wrong")
+    return sec / steps * 1e3
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity factor at which no MoE bucket overflows
+    (n_routed / top_k: a bucket holds a whole chunk)."""
+    if cfg.moe is None:
+        return cfg
+    return replace(cfg, moe=replace(
+        cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+
+
+@contextlib.contextmanager
+def recording_routes(out: list):
+    """Each MoE chunk's top-k expert ids, as ``moe.route`` returns them
+    to ``moe._moe_chunk``, appended to ``out``."""
+    orig = moe_module.route
+
+    def route(cfg, p, xc):
+        r = orig(cfg, p, xc)
+        out.append(r[3])
+        return r
+
+    moe_module.route = route
+    try:
+        yield
+    finally:
+        moe_module.route = orig
+
+
+def routes_by_layer(routes: list, n_moe: int, steps: int = 0) -> list:
+    """A run's recorded expert ids as one (B, T, K) tensor a MoE layer: a
+    prefill or forward calls the router layer by layer, chunk by chunk,
+    then each of ``steps`` decode steps once a layer."""
+    n_pre = len(routes) - n_moe * steps
+    per = n_pre // n_moe
+    check(per * n_moe == n_pre and per > 0,
+          f"{len(routes)} router calls do not split into {n_moe} layers")
+    return [torch.cat(routes[l * per:(l + 1) * per]
+                      + [routes[n_pre + i * n_moe + l] for i in range(steps)],
+                      dim=1) for l in range(n_moe)]
+
+
+@contextlib.contextmanager
+def replaying_routes(by_layer: list):
+    """``moe.route`` with a recorded run's expert ids (``by_layer``, as
+    :func:`routes_by_layer` gives them) in place of its own top-k; the
+    gates are the selected experts' own router probabilities,
+    renormalised as ``route`` does. Yields ``window(stop)``: call it
+    before each entry-point call, whose MoE layers then consume their ids
+    up to token ``stop``."""
+    orig = moe_module.route
+    st = {"layer": 0, "cursor": [0] * len(by_layer), "stop": 0}
+
+    def route(cfg, p, xc):
+        logits, probs, _, _ = orig(cfg, p, xc)
+        layer, c0 = st["layer"], st["cursor"][st["layer"]]
+        sel = by_layer[layer][:, c0:c0 + xc.shape[1]]
+        gate = probs.gather(-1, sel)
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+        st["cursor"][layer] = c0 + xc.shape[1]
+        if st["cursor"][layer] >= st["stop"]:
+            st["layer"] = (layer + 1) % len(by_layer)
+        return logits, probs, gate, sel
+
+    def window(stop: int) -> None:
+        st["stop"] = stop
+
+    moe_module.route = route
+    try:
+        yield window
+    finally:
+        moe_module.route = orig
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``ops.attention`` through the plain ``ref.attention_ref`` on the
+    card, K4's plain version: no flash launch inside the block."""
+    orig = ops.attention
+    ops.attention = lambda q, k, v, **kw: ref.attention_ref(q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ops.attention = orig
+
+
+def routing_share(a: list, b: list, n_experts: int) -> float:
+    """The share of (token, k) expert choices of run ``a`` that run ``b``
+    did not make for the same token."""
+    diff = total = 0
+    for x, y in zip(a, b, strict=True):
+        ox = F.one_hot(x, n_experts).sum(-2)
+        oy = F.one_hot(y, n_experts).sum(-2)
+        total += x.numel()
+        diff += x.numel() - int((ox * oy).sum())
+    return diff / total
+
+
+def prefill_vs_forward(model, params, tok, img, replay: bool) -> dict:
+    """Logit errors of a prefill of all but the last 2 of ``tok`` (K4
+    where the stack is flashable) and 2 decode steps, against ``forward``
+    over all of ``tok`` (plain attention where its length is no multiple
+    of 128). For MoE, with ``replay`` the prefill and decode take
+    ``forward``'s expert choices: bf16 rounds the two paths' router
+    logits apart, and a top-k choice that flips across a near tie moves a
+    token's output by a whole expert's share. The router-free run's
+    errors and the share of its choices that differ from ``forward``'s
+    come back as ``free_running``; that share is held to
+    ZOO_FLIP_LIMIT, the errors are a finding."""
+    cfg = model.cfg
+    S = tok.shape[1] - 2
+    fwd_routes: list = []
+    with recording_routes(fwd_routes):
+        x, _ = model.forward(params, tok, img=img)
+    want = model._head(params, x[:, S - 1:])[..., :cfg.vocab]
+    del x
+
+    def run(window=lambda stop: None):
+        window(S)
+        lg, cache = model.prefill(params, tok[:, :S],
+                                  model.init_cache(1, S + 2), img=img)
+        got = [lg]
+        for i in range(2):
+            window(S + i + 1)
+            lg, cache = model.decode_step(params, cache,
+                                          tok[:, S + i:S + i + 1])
+            got.append(lg)
+        return logit_errors(torch.cat(got, 1)[..., :cfg.vocab], want)
+
+    if cfg.moe is None:
+        return run()
+    n_moe = cfg.n_layers - len(cfg.dense_layers)
+    fwd = routes_by_layer(fwd_routes, n_moe)
+    routes: list = []
+    with recording_routes(routes):
+        free = run()
+    free["expert_choices_differing"] = routing_share(
+        routes_by_layer(routes, n_moe, steps=2), fwd, cfg.moe.n_routed)
+    check(free["expert_choices_differing"] <= ZOO_FLIP_LIMIT,
+          f"zoo {cfg.name} prefill + decode vs forward, routers free: "
+          f"{free['expert_choices_differing']:.2%} of the expert choices "
+          f"differ, limit {ZOO_FLIP_LIMIT:.0%}")
+    if not replay:
+        return free
+    with replaying_routes(fwd) as window:
+        err = run(window)
+    return err | {"free_running": free}
+
+
+def zoo_consistency(cfg, params, img, seed: int) -> dict:
+    """Prefill of ZOO_CHECK_SEQ tokens + 2 decode steps against
+    ``forward`` in bfloat16 on the model's parameters, at a capacity
+    factor where no MoE token drops and with ``forward``'s expert
+    choices replayed (:func:`prefill_vs_forward`); the LM slice's bf16
+    limits."""
+    cfg = no_drop(cfg)
+    tok = lm_tokens(1, ZOO_CHECK_SEQ + 2, cfg.vocab, seed)
+    err = prefill_vs_forward(build_model(cfg), params, tok,
+                             None if img is None else img[:1], replay=True)
+    free = err.pop("free_running", None)
+    check(lm_bf16_ok(err), f"zoo {cfg.name} prefill + decode vs forward: "
+          f"{err}")
+    print(f"zoo {cfg.name} check: prefill {ZOO_CHECK_SEQ} + 2 decode steps "
+          f"vs forward over {ZOO_CHECK_SEQ + 2} tokens, bf16 "
+          f"{json.dumps(err)} tol {LM_BF16_TOL:g} (max abs, x max(1, "
+          f"max|ref|); and relative L2) ok"
+          + (f" (capacity factor {cfg.moe.capacity_factor:.4g}: no drops; "
+             f"forward's expert choices replayed; routers free, the share "
+             f"of choices differing held to {ZOO_FLIP_LIMIT:.0%}, the errors "
+             f"a finding: {json.dumps(free)})" if free is not None else ""), flush=True)
+    return err | ({"free_running": free} if free is not None else {})
+
+
+def zoo_moe_f32(seed: int) -> dict:
+    """(a) 1 in float32, where rounding moves no top-k choice: the MoE
+    stack at full width cut to ZOO_F32_LAYERS layers, no drops, the
+    router free (:func:`prefill_vs_forward`); the LM slice's float32
+    limit."""
+    cfg = no_drop(replace(get_arch(ZOO_MOE), n_layers=ZOO_F32_LAYERS,
+                          param_dtype="float32", compute_dtype="float32"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    tok = lm_tokens(1, ZOO_CHECK_SEQ + 2, cfg.vocab, seed)
+    err = prefill_vs_forward(model, params, tok, None, replay=False)
+    check(err["max_abs_err"] <= LM_F32_TOL * max(1.0, err["max_abs_ref"]),
+          f"zoo (a) f32 prefill + decode vs forward: {err}")
+    print(f"zoo (a) {cfg.name} full width, {cfg.n_layers} layers, float32, "
+          f"no drops: prefill {ZOO_CHECK_SEQ} + 2 decode steps vs forward "
+          f"{json.dumps(err)} tol {LM_F32_TOL:g} x max(1, max|ref|) ok",
+          flush=True)
+    del model, params
+    free_memory()
+    return err
+
+
+def zoo_k4_layer(cfg, blk: dict, x: torch.Tensor, label: str) -> dict:
+    """K4 in the self layer ``blk`` at the model's shape (its q, k, v from
+    the layer's input ``x``) against its plain version; the bf16 kernel
+    tolerances of :func:`compare`."""
+    B, S = x.shape[:2]
+    q, k, v = attention._qkv(cfg, blk["attn"], apply_norm(cfg, blk["ln1"], x),
+                             torch.arange(S, device="cuda"))
+    args = [t.reshape(-1, S, cfg.d_head).contiguous() for t in (q, k, v)]
+    check(args[0].shape[0] == B * cfg.n_heads
+          and args[1].shape[0] == B * cfg.n_kv_heads,
+          f"zoo {cfg.name} K4 shape {[a.shape for a in args]}")
+    return compare("flash_attention_causal",
+                   kernel_cfg("flash_attention_causal", {}), args, "bfloat16",
+                   label)
+
+
+def zoo_k4_vs_plain(model, params, tok) -> dict:
+    """(a) 2 at the config's capacity factor: K4 in the first layer at the
+    model's shape against its plain version; then the prefill of ``tok``
+    with K4 against the same prefill with K4's plain version, routers
+    free. The share of (token, k) expert choices that differ between the
+    two is held to ZOO_FLIP_LIMIT; their last logits' errors are a
+    finding (a choice that flips across a near tie moves a token by a
+    whole expert's share)."""
+    cfg = model.cfg
+    n_moe = cfg.n_layers - len(cfg.dense_layers)
+    out = {"k4_layer": zoo_k4_layer(cfg, params["dense_prefix"][0],
+                                    model._embed(params, tok),
+                                    "zoo MHA 16/16")}
+    runs = []
+    for plain in (False, True):
+        routes: list = []
+        snap = k4_snapshot()
+        ctx = plain_attention() if plain else contextlib.nullcontext()
+        with ctx, recording_routes(routes):
+            lg, _ = model.prefill(params, tok, model.init_cache(*tok.shape))
+        n, _ = k4_since(snap)
+        check(n == (0 if plain else cfg.n_layers),
+              f"zoo (a) {'plain' if plain else 'K4'} prefill launched K4 "
+              f"{n} times")
+        runs.append((lg[..., :cfg.vocab], routes_by_layer(routes, n_moe)))
+    (got, k4), (want, ref_routes) = runs
+    free = logit_errors(got, want)
+    free["expert_choices_differing"] = routing_share(k4, ref_routes,
+                                                     cfg.moe.n_routed)
+    free["expert_choices"] = sum(r.numel() for r in k4)
+    check(free["expert_choices_differing"] <= ZOO_FLIP_LIMIT,
+          f"zoo (a) prefill with K4 vs plain, routers free: "
+          f"{free['expert_choices_differing']:.2%} of the expert choices "
+          f"differ, limit {ZOO_FLIP_LIMIT:.0%}")
+    print(f"zoo (a) {cfg.name} prefill {tok.shape[0]} x {tok.shape[1]} at "
+          f"capacity factor {cfg.moe.capacity_factor}: K4 vs its plain "
+          f"version, routers free: expert choices differing "
+          f"{free['expert_choices_differing']:.4%} (limit "
+          f"{ZOO_FLIP_LIMIT:.0%}) ok; logits, a finding: {json.dumps(free)}",
+          flush=True)
+    return out | {"free_running": free}
+
+
+def zoo_serve(model, params, n_req: int, mode: str) -> dict:
+    """``ServeEngine(mode="auto")`` on 4 slots: ``n_req`` requests of 16
+    tokens; the engine must pick ``mode``."""
+    cfg = model.cfg
+    eng = ServeEngine(model, params, n_slots=4, max_seq=256, mode="auto")
+    rng = np.random.default_rng(0)
+    for rid in range(n_req):
+        prompt = rng.integers(0, cfg.vocab, int(rng.integers(8, 33)),
+                              dtype=np.int32)
+        check(eng.submit(Request(rid, prompt, max_new_tokens=16)),
+              f"request {rid} rejected")
+    rep, sec = timed(eng.run)
+    check(rep.requests_completed == n_req and rep.mode == mode
+          and all(len(t) == 16 for t in rep.values()),
+          f"zoo {cfg.name} serve: {rep.to_json()}")
+    out = rep.to_json() | {"seconds": sec, "tok_s": n_req * 16 / sec}
+    print(f"zoo {cfg.name} ServeEngine {rep.mode} mode (auto), 4 slots, "
+          f"max_seq 256: {rep.requests_completed} requests, {rep.steps} "
+          f"steps, occupancy {rep.occupancy}, {n_req * 16} tokens in "
+          f"{sec:.2f} s ({out['tok_s']:.1f} generated tokens/s)", flush=True)
+    return out
+
+
+def zoo_prefill_line(cfg, tok, secs: list, dec_ms: float, prof: dict,
+                     peak_gb: float) -> dict:
+    ms = statistics.median(secs[1:]) * 1e3
+    busy = prof["device_ms_per_step"]
+    out = {"prefill_ms": ms, "prefill_runs_ms": [x * 1e3 for x in secs],
+           "prefill_tok_s": tok.numel() / (ms / 1e3),
+           "decode_ms_per_step": dec_ms, "peak_gb": peak_gb,
+           "prefill_busy_ms": busy, "prefill_busy_share": busy / ms}
+    print(f"zoo {cfg.name} bf16 x {cfg.n_layers} layers: prefill "
+          f"{tok.shape[0]} x {tok.shape[1]} tokens in {ms:.1f} ms "
+          f"({out['prefill_tok_s']:.0f} tokens/s; runs "
+          f"{[round(x * 1e3, 1) for x in secs]} ms, the first a warm-up), "
+          f"device busy {busy:.1f} ms ({busy / ms:.0%}); decode "
+          f"{dec_ms:.2f} ms/step at batch {tok.shape[0]}; peak device "
+          f"memory {peak_gb:.1f} GB", flush=True)
+    return out
+
+
+def zoo_moe() -> tuple[dict, tuple]:
+    """(a) deepseek-moe-16b at full width and depth."""
+    cfg = get_arch(ZOO_MOE)
+    f32 = zoo_moe_f32(seed=23)
+    model, params, n = zoo_model(cfg, seed=20)
+    tok = lm_tokens(ZOO_BATCH, ZOO_SEQ, cfg.vocab, seed=21)
+    snap = k4_snapshot()
+    logits, cache, secs = zoo_prefills(model, params, tok, None,
+                                       cfg.n_layers)
+    dec_ms = zoo_decode(model, params, cache, logits, ZOO_DECODE)
+    del cache
+    prof = device_profile(lambda: model.prefill(
+        params, tok, model.init_cache(ZOO_BATCH, ZOO_SEQ)),
+        f"zoo {ZOO_MOE} prefill {ZOO_BATCH} x {ZOO_SEQ}", top=5,
+        own="fa_wgmma_kernel")
+    state = {"logits": logits,
+             "cache": model.prefill(params, tok, model.init_cache(
+                 ZOO_BATCH, ZOO_SEQ + 4))[1]}
+
+    def decode_4():
+        for _ in range(4):
+            nxt = state["logits"][:, -1].argmax(-1, keepdim=True)
+            state["logits"], state["cache"] = model.decode_step(
+                params, state["cache"], nxt)
+
+    prof_dec = device_profile(decode_4, f"zoo {ZOO_MOE} decode batch "
+                              f"{ZOO_BATCH}", steps=4, top=5)
+    del state
+    out = {"n_params": n} | zoo_prefill_line(
+        cfg, tok, secs, dec_ms, prof, torch.cuda.max_memory_allocated() / 1e9)
+    out["profile_prefill"], out["profile_decode"] = prof, prof_dec
+    out["decode_busy_share"] = prof_dec["device_ms_per_step"] / dec_ms
+    out["serve"] = zoo_serve(model, params, 8, "token")
+    launches = zoo_path_launches(cfg, snap, 5, cfg.n_layers)
+    out["no_drop_f32"] = f32
+    out["no_drop"] = zoo_consistency(cfg, params, None, seed=22)
+    out["k4_vs_plain"] = zoo_k4_vs_plain(model, params, tok)
+    del model, params, logits
+    free_memory()
+    return out, launches
+
+
+def zoo_vision() -> tuple[dict, tuple]:
+    """(b) llama-3.2-vision-11b at full width and depth, gates open."""
+    cfg = get_arch(ZOO_VISION)
+    groups = cfg.n_layers // cfg.cross_attn_period
+    n_self = groups * (cfg.cross_attn_period - 1)
+    model, params, n = zoo_model(cfg, seed=30)
+    for cross in params["cross"]:
+        cross["attn"]["gate"].fill_(ZOO_GATE)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    img = torch.randn((ZOO_BATCH, cfg.n_img_tokens, cfg.d_model),
+                      generator=g, device="cuda").to(torch.bfloat16)
+    tok = lm_tokens(ZOO_BATCH, ZOO_SEQ, cfg.vocab, seed=32)
+    snap = k4_snapshot()
+    logits, cache, secs = zoo_prefills(model, params, tok, img, n_self)
+    check(bool(cache["cross_kv"]["k"].abs().amax() > 0),
+          "zoo (b) prefill did not write cross_kv")
+    dec_ms = zoo_decode(model, params, cache, logits, ZOO_DECODE)
+    del cache
+    prof = device_profile(lambda: model.prefill(
+        params, tok, model.init_cache(ZOO_BATCH, ZOO_SEQ), img=img),
+        f"zoo {ZOO_VISION} prefill {ZOO_BATCH} x {ZOO_SEQ}", top=5,
+        own="fa_wgmma_kernel")
+    out = {"n_params": n, "self_layers": n_self} | zoo_prefill_line(
+        cfg, tok, secs, dec_ms, prof, torch.cuda.max_memory_allocated() / 1e9)
+    launches = zoo_path_launches(cfg, snap, 4, n_self)
+    out["no_drop"] = zoo_consistency(cfg, params, img, seed=33)
+    # K4 in the first self layer, at its GQA 32/8 shape, against its plain
+    # version
+    cross = params["cross"][0]
+    x = model._cross_block(cross, model._embed(params, tok),
+                           *attention.cross_kv(cfg, cross["attn"], img))
+    out["k4_layer"] = zoo_k4_layer(cfg, params["layers"][0][0], x,
+                                   "zoo GQA 32/8")
+    del model, params, logits, x, img
+    free_memory()
+    return out, launches
+
+
+def zoo_mla() -> tuple[dict, tuple]:
+    """(c) deepseek-v2-236b at full width, ZOO_MLA_LAYERS layers."""
+    cfg = replace(get_arch(ZOO_MLA), n_layers=ZOO_MLA_LAYERS)
+    model, params, n = zoo_model(cfg, seed=40)
+    tok = lm_tokens(ZOO_MLA_BATCH, ZOO_SEQ, cfg.vocab, seed=41)
+    snap = k4_snapshot()
+    logits, cache, secs = zoo_prefills(model, params, tok, None, 0)
+    dec_ms = zoo_decode(model, params, cache, logits, ZOO_MLA_DECODE)
+    del cache
+    prof = device_profile(lambda: model.prefill(
+        params, tok, model.init_cache(ZOO_MLA_BATCH, ZOO_SEQ)),
+        f"zoo {ZOO_MLA} ({ZOO_MLA_LAYERS} layers) prefill {ZOO_MLA_BATCH} x "
+        f"{ZOO_SEQ}", top=5)
+    out = {"n_params": n} | zoo_prefill_line(
+        cfg, tok, secs, dec_ms, prof, torch.cuda.max_memory_allocated() / 1e9)
+    out["serve"] = zoo_serve(model, params, 4, "cohort")
+    launches = zoo_path_launches(cfg, snap, 4, 0)
+    out["no_drop"] = zoo_consistency(cfg, params, None, seed=42)
+    del model, params, logits
+    free_memory()
+    return out, launches
+
+
+def zoo_path_launches(cfg, snap: tuple, prefills: int, n_flash: int
+                      ) -> tuple[int, Counter]:
+    """K4's launches on a model's path since ``snap``, read before its
+    checks: ``prefills`` prefills of ``n_flash`` wgmma bf16 launches each
+    (the three timed, the profiled one, for MoE the decode profile's)
+    and none while decoding or serving."""
+    n, by = k4_since(snap)
+    want = prefills * n_flash
+    check(n == want and by[("wgmma", "bfloat16")] == want,
+          f"zoo {cfg.name} path launched K4 {n} times ({dict(by)}), want "
+          f"{want} ({prefills} prefills of {n_flash}), all wgmma bfloat16")
+    return n, +by
+
+
+def free_memory() -> None:
+    """Collect reference cycles, then return the freed blocks to the
+    card: phase 11 leaves its train state in a cycle that only the
+    cycle collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(tmp: Path) -> dict:
+    """Phase 12: the zoo's attention families on the card, one model at a
+    time, from an empty wisdom directory (K4 in its default config)."""
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    free_memory()
+    print(f"phase 12 (the zoo) starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"({before / 1e9:.2f} GB before the cycle collector ran)",
+          flush=True)
+    out = {}
+    total, by = 0, Counter()
+    with quickstart._env(**{WISDOM_DIR_ENV: str(tmp / "zoo-wisdom")}):
+        ops.reload_wisdom()
+        for name, fn in ((ZOO_MOE, zoo_moe), (ZOO_VISION, zoo_vision),
+                         (ZOO_MLA, zoo_mla)):
+            t = time.perf_counter()
+            out[name], (n, b) = fn()
+            out[name]["seconds"] = time.perf_counter() - t
+            total += n
+            by += b
+            print(f"zoo {name} took {out[name]['seconds']:.1f}s; K4 "
+                  f"launched {n} times on its path "
+                  f"({json.dumps({' '.join(k): v for k, v in b.items()})}); "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+                  f"allocated", flush=True)
+    ops.reload_wisdom()
+    out["launches"] = {"flash_attention": total}
+    out["by_body"] = {" ".join(k): v for k, v in sorted(by.items())}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 (the zoo) took {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2709,6 +3286,15 @@ def main() -> int:
               flush=True)
         for name, n in train["launches"].items():
             check(n > 0, f"{name} was not launched on the training path")
+        zoo = phase_zoo(Path(tmp))
+        print(f"zoo-path launches: {json.dumps(zoo['launches'])}; "
+              f"flash_attention by body: {json.dumps(zoo['by_body'])}",
+              flush=True)
+        for name, n in zoo["launches"].items():
+            check(n > 0, f"{name} was not launched on the zoo's path")
+            counts[name] += n
+        for key, n in zoo["by_body"].items():
+            by["flash_attention"][key] = by["flash_attention"].get(key, 0) + n
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

@@ -1,11 +1,13 @@
 """Scenario tables and architectures (port of ``repro.configs``): the
 paper's MicroHH grids (``microhh``) and the LM architectures the port can
-build, one module per architecture, each exporting ``CONFIG``.
+build (the dense family, MoE, MoE with MLA, and vision), one module per
+architecture, each exporting ``CONFIG``.
 
 ``get_arch("codeqwen1.5-7b")`` returns the full config;
 ``get_arch(name).reduced()`` the CPU smoke variant. The reference's other
-architectures need model families the port does not have yet; asking for
-one raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+architectures (mamba+attn, RWKV, encoder-decoder) need model families the
+port does not have yet; asking for one raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -19,15 +21,15 @@ ARCH_MODULES: dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen1_5_7b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
 }
 
 #: The reference's architectures that the port cannot build yet, and the
 #: ROADMAP.md item (queue 1) that ports each.
 NOT_PORTED: dict[str, str] = {
-    "llama-3.2-vision-11b": "item 8 (vision: cross-attention)",
     "hymba-1.5b": "item 9 (mamba+attn)",
-    "deepseek-moe-16b": "item 9 (MoE)",
-    "deepseek-v2-236b": "item 9 (MoE with MLA)",
     "rwkv6-7b": "item 9 (RWKV)",
     "whisper-base": "item 9 (encoder-decoder)",
 }

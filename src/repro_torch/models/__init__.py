@@ -1,5 +1,7 @@
-"""Model zoo (port of ``repro.models``), dense family: ``build_model(cfg)``
-returns a :class:`DecoderLM` on the card (or the device asked for)."""
+"""Model zoo (port of ``repro.models``): the dense family, MoE
+(deepseek-moe), MoE with MLA (deepseek-v2) and vision with gated
+cross-attention (llama-3.2-vision). ``build_model(cfg)`` returns a
+:class:`DecoderLM` on the card (or the device asked for)."""
 
 import torch
 
@@ -15,8 +17,9 @@ def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
     """The decoder for ``cfg`` on ``device``. The default ``cuda`` raises
     without a card; pass ``cpu`` for the plain PyTorch versions, or
     ``meta`` for shapes only. ``remat`` checkpoints each layer's
-    activations in training. Encoder-decoder configs are not ported yet
-    (ROADMAP.md queue 1 item 9)."""
+    activations in training. Encoder-decoder configs (``EncDecLM``) are
+    not ported yet (ROADMAP.md queue 1 item 9); nor are the mamba+attn
+    and RWKV mixers, which :class:`DecoderLM` refuses (item 9)."""
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: EncDecLM is not ported yet (ROADMAP.md queue 1 "

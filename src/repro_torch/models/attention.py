@@ -13,8 +13,9 @@ returns the same tensors, so a caller that keeps the stacked
 ``(L, B, Hkv, S, D)`` cache and hands each layer a view of it sees every
 write. Decode positions are host ints.
 
-Cross-attention (``repro/models/attention.py:187-222``) waits for the
-vision slice.
+Cross-attention (the vision family's gated blocks) attends S queries to
+precomputed image-memory K/V through the plain ``ref.attention_ref``,
+non-causal, as the reference runs its oracle there.
 """
 
 from __future__ import annotations
@@ -185,3 +186,44 @@ def _decode_attention(q, cache_k, cache_v, pos: int, window,
                      p.to(cache_v.dtype).to(torch.float32),
                      cv.to(torch.float32))
     return o.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+# ----------------------------------------------------------- cross-attn ----
+
+def init_cross_attn(generator, cfg: ArchConfig, device) -> dict:
+    dtype = dt(cfg)
+    d = cfg.d_model
+    return {
+        "wq": dense_init(generator, (d, cfg.d_q), dtype, device),
+        "wk": dense_init(generator, (d, cfg.d_kv), dtype, device),
+        "wv": dense_init(generator, (d, cfg.d_kv), dtype, device),
+        "wo": dense_init(generator, (cfg.d_q, d), dtype, device),
+        # mllama tanh gate, 0 at init: tanh(0) removes the block's output
+        "gate": torch.zeros((), dtype=torch.float32, device=device),
+    }
+
+
+def cross_kv(cfg: ArchConfig, p: dict, memory: torch.Tensor):
+    """Precompute cross-attention K/V (B, Hkv, M, D) from image memory
+    (B, M, D)."""
+    B, M, _ = memory.shape
+    k = memory @ p["wk"].to(memory.dtype)
+    v = memory @ p["wv"].to(memory.dtype)
+    k = k.reshape(B, M, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    v = v.reshape(B, M, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    return k, v
+
+
+def cross_attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       gated: bool = True) -> torch.Tensor:
+    """x: (B, S, D) queries; k/v: (B, Hkv, M, D) precomputed memory."""
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    o = kref.attention_ref(q, k, v, causal=False)
+    o = o.transpose(1, 2).reshape(B, S, cfg.d_q)
+    out = o @ p["wo"].to(x.dtype)
+    if gated:
+        out = out * torch.tanh(p["gate"]).to(out.dtype)
+    return out

@@ -1,0 +1,145 @@
+"""Fine-grained mixture-of-experts (DeepSeek-MoE / DeepSeek-V2 style):
+shared experts + routed top-k experts with capacity-bucketed one-hot
+dispatch (port of ``repro.models.moe``).
+
+The sequence is processed in chunks of ``moe.chunk`` tokens (halved while
+it does not divide S); capacity is per chunk. Within a chunk each (token,
+k) choice takes the next free slot of its expert's bucket in (C*K) order
+and is dropped when the bucket is full, exactly as the reference's
+one-hot cumsum does. Router aux losses (load-balance + z-loss), averaged
+over chunks, are returned for the train loss.
+
+The reference scans the chunks with ``lax.scan`` and runs each under
+``jax.checkpoint``; the port loops over them in Python and runs each under
+``torch.utils.checkpoint`` when autograd records, so the dispatch and
+combine one-hots are recomputed in the backward instead of kept. The
+expert products are plain ``torch.einsum`` calls: the reference computes
+them outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .common import dense_init, dt
+from .config import ArchConfig, MoECfg
+
+
+def init_moe(generator, cfg: ArchConfig, device) -> dict:
+    e = cfg.moe
+    d = cfg.d_model
+    dtype = dt(cfg)
+    p = {
+        "router": dense_init(generator, (d, e.n_routed), torch.float32,
+                             device),
+        "w_in": dense_init(generator, (e.n_routed, d, e.d_expert), dtype,
+                           device, in_axis=-2),
+        "w_gate": dense_init(generator, (e.n_routed, d, e.d_expert), dtype,
+                             device, in_axis=-2),
+        "w_out": dense_init(generator, (e.n_routed, e.d_expert, d), dtype,
+                            device, in_axis=-2),
+    }
+    if e.n_shared:
+        sh = e.n_shared * e.d_expert
+        p["shared_in"] = dense_init(generator, (d, sh), dtype, device)
+        p["shared_gate"] = dense_init(generator, (d, sh), dtype, device)
+        p["shared_out"] = dense_init(generator, (sh, d), dtype, device)
+    return p
+
+
+def _capacity(e: MoECfg, chunk_tokens: int) -> int:
+    cap = int(chunk_tokens * e.top_k / e.n_routed * e.capacity_factor)
+    return max(4, ((cap + 3) // 4) * 4)
+
+
+def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor
+            ) -> tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (out, aux). Chunked over S."""
+    e = cfg.moe
+    B, S, D = x.shape
+    chunk = min(e.chunk, S)
+    while S % chunk:
+        chunk //= 2
+    n_chunks = S // chunk
+    cap = _capacity(e, chunk)
+
+    lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(n_chunks):
+        xc = x[:, i * chunk:(i + 1) * chunk]
+        if torch.is_grad_enabled() and (xc.requires_grad
+                                        or p["router"].requires_grad):
+            # dispatch/combine one-hots are large: recompute in backward
+            yc, lb, z = checkpoint(_moe_chunk, cfg, p, xc, cap,
+                                   use_reentrant=False)
+        else:
+            yc, lb, z = _moe_chunk(cfg, p, xc, cap)
+        lb_sum = lb_sum + lb
+        z_sum = z_sum + z
+        ys.append(yc)
+    y = torch.cat(ys, dim=1)
+
+    if e.n_shared:
+        h = x @ p["shared_in"].to(x.dtype)
+        g = x @ p["shared_gate"].to(x.dtype)
+        y = y + (F.silu(g) * h) @ p["shared_out"].to(x.dtype)
+    aux = {"moe_load_balance": lb_sum / n_chunks,
+           "moe_z_loss": z_sum / n_chunks}
+    return y, aux
+
+
+def route(cfg: ArchConfig, p: dict, xc: torch.Tensor):
+    """The router of one chunk xc (B, C, D): (float32 logits, probs,
+    renormalised top-k gates, top-k expert ids), each (B, C, *). The
+    product runs in the activation dtype (a float32 copy of xc would be
+    as large as the hidden state); only the logits are upcast."""
+    logits = (xc @ p["router"].to(xc.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                    # (B, C, E)
+    gate, sel = torch.topk(probs, cfg.moe.top_k, dim=-1)     # (B, C, K)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)        # renorm (dsv2)
+    return logits, probs, gate, sel
+
+
+def _moe_chunk(cfg: ArchConfig, p: dict, xc: torch.Tensor, cap: int):
+    """One seq chunk: xc (B, C, D)."""
+    e = cfg.moe
+    B, C, D = xc.shape
+    E, K = e.n_routed, e.top_k
+    logits, probs, gate, sel = route(cfg, p, xc)
+
+    # one-hots by comparison: no host sync on the card
+    experts = torch.arange(E, dtype=sel.dtype, device=sel.device)
+    onehot = (sel[..., None] == experts).to(torch.float32)   # (B, C, K, E)
+
+    # aux losses
+    me = probs.mean(dim=(0, 1))                              # (E,)
+    ce = onehot.sum(dim=(0, 1, 2)) * (1.0 / (B * C * K))     # choice share
+    load_balance = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    # capacity-bucketed dispatch (Switch-style, per (batch, chunk))
+    # position of each (token, k) within its expert's bucket, in (C*K) order
+    flat = onehot.reshape(B, C * K, E)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat              # (B, C*K, E)
+    pos_in_e = (pos_in_e * flat).sum(-1).to(torch.int32)     # (B, C*K)
+    keep = (pos_in_e < cap).to(torch.float32)
+    # one-hot of the slot; a position past the bucket has none
+    slot = (pos_in_e[..., None] == torch.arange(
+        cap, dtype=torch.int32, device=xc.device)).to(torch.float32)
+    # dispatch[b, ck, e, cap]
+    dispatch = flat[..., None] * slot[..., None, :] * keep[..., None, None]
+    dispatch = dispatch.reshape(B, C, K, E, cap)
+    combine = (dispatch * gate[..., None, None]).sum(2)      # (B, C, E, cap)
+    dispatch = dispatch.sum(2)                               # (B, C, E, cap)
+
+    cd = xc.dtype
+    xe = torch.einsum("bceg,bcd->begd", dispatch.to(cd), xc)  # (B,E,cap,D)
+    h = torch.einsum("begd,edf->begf", xe, p["w_in"].to(cd))
+    g = torch.einsum("begd,edf->begf", xe, p["w_gate"].to(cd))
+    oe = torch.einsum("begf,efd->begd", F.silu(g) * h,
+                      p["w_out"].to(cd))                     # (B,E,cap,D)
+    yc = torch.einsum("bceg,begd->bcd", combine.to(cd), oe)
+    return yc, load_balance, z_loss

@@ -960,3 +960,143 @@ def test_remat_gives_the_same_gradients_on_card(cuda_device, empty_wisdom):
     for a, b in zip(grads[False], grads[True]):
         top = float(a.abs().max())
         assert float((a - b).abs().max()) <= 1e-5 * max(1.0, top)
+
+
+# ----------------------------------------------------------------- the zoo
+
+def _zoo_model(device, arch, dtype="float32", **upd):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(arch).reduced(param_dtype=dtype, compute_dtype=dtype,
+                                 **upd)
+    return build_model(cfg, device=device)
+
+
+def _to(tree_, device):
+    from repro_torch import tree
+    return tree.tree_map(lambda t: t.to(device), tree_)
+
+
+def test_moe_ffn_on_card_matches_the_host(cuda_device):
+    """``moe_ffn`` at a small width, capacity factor 1.25 and chunk 16,
+    with a router skewed to expert 0 so buckets overflow and tokens drop:
+    the card (float32, IEEE products) against the CPU on the same inputs,
+    rtol = atol = 1e-4; both drop the same (token, k) choices."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    model = _zoo_model("cpu", "deepseek-moe-16b")
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+        model.cfg.moe, capacity_factor=1.25, chunk=16))
+    g = torch.Generator().manual_seed(0)
+    p = moe.init_moe(g, cfg, "cpu")
+    u = torch.randn(cfg.d_model, generator=g)
+    u /= u.norm()
+    p["router"][:, 0] += 3.0 * u
+    x = torch.randn((2, 64, cfg.d_model), generator=g) + 2.0 * u
+    cap = moe._capacity(cfg.moe, 16)
+    sel = moe.route(cfg, p, x[:, :16])[3]
+    assert int(torch.bincount(sel[0].reshape(-1)).max()) > cap
+    want, want_aux = moe.moe_ffn(cfg, p, x)
+    got, aux = moe.moe_ffn(cfg, _to(p, cuda_device), x.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for k in want_aux:
+        torch.testing.assert_close(aux[k].cpu(), want_aux[k], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("block", [1024, 3])
+def test_mla_decode_on_card_matches_the_host(cuda_device, monkeypatch, block):
+    """Absorbed MLA decode (4 steps after an 8-token prefill) on the card
+    against the CPU, float32, rtol = atol = 1e-4, and against the
+    expanded forward on the card; with the cache cast to float32 in one
+    block and in blocks of 3 positions."""
+    from repro_torch.models import mla
+
+    monkeypatch.setattr(mla, "DECODE_BLOCK", block)
+
+    model = _zoo_model("cpu", "deepseek-v2-236b")
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(1)
+    p = mla.init_mla(g, cfg, "cpu")
+    x = torch.randn((2, 12, cfg.d_model), generator=g)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        pd, xd = _to(p, dev), x.to(dev)
+        c = mla.init_mla_cache(cfg, 1, 2, 16, torch.float32, dev)
+        ckv, kpe = c["c_kv"][0], c["k_pe"][0]
+        _, ckv, kpe = mla.mla_prefill(cfg, pd, xd[:, :8], ckv, kpe)
+        steps = []
+        for pos in range(8, 12):
+            o, ckv, kpe = mla.mla_decode(cfg, pd, xd[:, pos:pos + 1], ckv,
+                                         kpe, pos)
+            steps.append(o)
+        outs[str(dev)] = (torch.cat(steps, 1), mla.mla_forward(cfg, pd, xd))
+    (got, full), (want, _) = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, full[:, 8:], rtol=1e-4, atol=1e-4)
+
+
+def test_vision_prefill_on_card_runs_flash_and_matches_the_host(cuda_device):
+    """A reduced vision model with d_head 128 (2 groups of a gated cross
+    block, gate 1.0, and 2 self layers), S 128, float32: the card's
+    prefill launches K4 once a self layer and never in a cross block; its
+    logits, and 2 decode steps', match the CPU's within 1e-4 (both IEEE
+    float32)."""
+    model = _zoo_model("cpu", "llama-3.2-vision-11b", n_layers=6,
+                       cross_attn_period=3, d_model=64, n_heads=4,
+                       n_kv_heads=2, d_head=128)
+    card = _zoo_model(cuda_device, "llama-3.2-vision-11b", n_layers=6,
+                      cross_attn_period=3, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_head=128)
+    cfg = model.cfg
+    params = model.init(0)
+    for cross in params["cross"]:
+        cross["attn"]["gate"].fill_(1.0)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 130), generator=g)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=g)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    outs = {}
+    for m, dev in ((model, "cpu"), (card, cuda_device)):
+        p = _to(params, dev)
+        n0 = fa.launches
+        lg, cache = m.prefill(p, tokens[:, :128].to(dev),
+                              m.init_cache(2, 130), img=img.to(dev))
+        if m is card:
+            assert fa.launches - n0 == 4      # 2 groups x 2 self layers
+        got = [lg]
+        for i in range(2):
+            lg, cache = m.decode_step(p, cache,
+                                      tokens[:, 128 + i:129 + i].to(dev))
+            got.append(lg)
+        outs[str(dev)] = torch.cat(got, 1).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_attention_gqa_32_8_matches_plain_version(cuda_device):
+    """K4 through ``ops.attention`` at llama-3.2-vision's GQA 32/8 (D 128,
+    S 512, bfloat16: the wgmma body) against ``ref.attention_ref``: the
+    tuner's bf16 allclose and the row relative L2 bound."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               .to(torch.bfloat16)
+               for shape in ((1, 32, 512, 128), (1, 8, 512, 128),
+                             (1, 8, 512, 128)))
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    n0, w0 = fa.launches, fa.body_launches.get("wgmma", 0)
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    assert fa.body_launches.get("wgmma", 0) == w0 + 1
+    want = ref.attention_ref(q, k, v, causal=True)
+    out = verify_outcome(got, want, "bfloat16")
+    assert out.ok, out.error
+    row = flash_attention.row_l2_error(got.reshape(32, 512, 128),
+                                       want.reshape(32, 512, 128))
+    assert row <= flash_attention.ROW_L2_TOL["bfloat16"], row

@@ -293,8 +293,10 @@ def test_full_codeqwen_param_count_on_meta():
 
 
 def test_other_families_raise_with_their_roadmap_item():
-    for name in ("llama-3.2-vision-11b", "deepseek-moe-16b", "hymba-1.5b",
-                 "deepseek-v2-236b", "rwkv6-7b", "whisper-base"):
+    """The reference's architectures still to port (ROADMAP.md queue 1
+    item 9). The MoE, MLA and vision ones are built, and held to the
+    reference in ``tests/test_torch_zoo.py``."""
+    for name in ("hymba-1.5b", "rwkv6-7b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_arch(name)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
