@@ -185,13 +185,38 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    deepseek-v2-236b at full width cut to 3 layers (the dense MLA layer 0
    and 2 MoE+MLA layers, 9.33 B parameters): prefill 2 x 2048 (no K4:
    MLA's attention is plain), 16 absorbed decode steps, ``ServeEngine``
-   picking cohort mode for 4 requests, and the no-drop check.
+   picking cohort mode for 4 requests, and the no-drop check;
+13. the recurrent and encoder-decoder families at full width and depth,
+   one model at a time, each freed before the next, with seeded random
+   bf16 weights whose recurrent constants are redrawn (the reference
+   initialises rwkv's ``mu``, ``mu_c``, ``bonus`` and ``decay_base`` to
+   0 and ``ln_x.scale`` to 1, mamba's ``A_log`` and ``dt_bias`` to 0 and
+   ``D_skip`` to 1, which would hide a wrong token shift, bonus or
+   decay; :func:`redraw_recurrent`): hymba-1.5b (32 layers, global
+   attention in {0, 15, 31}, SWA 1024 elsewhere) and rwkv6-7b (32
+   layers): prefill 4 x 2048 (a warm-up and two timed runs; rwkv's wkv
+   loop is host-bound, and its one run is timed), 32 greedy decode steps,
+   profiler windows of one prefill and one decode step (busy share, five
+   largest kernels), peak memory, ``ServeEngine(mode="auto")`` picking
+   cohort mode for 8 requests on 4 slots; whisper-base (6 + 6 layers):
+   ``encode`` of frames (4, 1500, 512), prefill 4 x 256, 32 decode
+   steps, the profiler windows. Checks, each raising: (a) in float32 at
+   full width with 2 layers, prefill's last logits against the prompt
+   fed token by token through ``decode_step`` (hymba 320 tokens, 5 mamba
+   chunks of 64, windows global and 128; rwkv and whisper 64), within
+   1e-3 x max(1, max|ref|); (b) in bf16 at full depth, a prefill of 512
+   + 2 decode steps against ``forward`` over the 514 tokens, within the
+   LM slice's bf16 limits; (c) K4 launched 0 times on the path and in
+   the checks (d_head 64 is no flash head dim, as in the reference).
+   One line a model gives the card's name and power limit and every
+   reading.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5,
 phase 11a's driver run) and read just after; phase 12 reads K4's
 launches around each model's path (its prefills, decode steps, profiler
 windows and serving), before that model's checks, and holds them to the
-number of prefills times the flash layers. Every
+number of prefills times the flash layers; phase 13 holds K4's launches
+around each model's path and checks to 0. Every
 kernel of the path must have launched there. The
 last two lines are the ``kernels`` JSON (each kernel's launches on its path,
 in all and by body and dtype; K4's include phase 12's) and ``{"ok": true,
@@ -255,8 +280,9 @@ from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models import mamba as mamba_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
-from repro_torch.models.common import apply_norm  # noqa: E402
+from repro_torch.models.common import apply_norm, cdt  # noqa: E402
 from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.obs import runtime as obs_runtime  # noqa: E402
 from repro_torch.online import enable_online_tuning  # noqa: E402
@@ -1079,17 +1105,22 @@ def timed(fn):
 
 
 def device_profile(fn, label: str, steps: int = 1, top: int = 6,
-                   own: str = "") -> dict:
+                   own: str = "", host_ops: bool = True) -> dict:
     """Run ``fn`` under torch.profiler: the device's kernel time per step,
     the window's host time per step (profiler overhead included), the
     kernels that took the most device time and, where ``own`` names a
-    kernel function, that kernel's own device time per step."""
+    kernel function, that kernel's own device time per step. Without
+    ``host_ops`` the profiler records no host operators (for a window of
+    ~10^5 launches, whose operator events cost minutes to collect)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         _, wall = timed(fn)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -1102,6 +1133,7 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6,
     res = {"device_ms_per_step": busy / steps,
            "event_sync_ms_per_step": sync_ms / steps,
            "profiled_wall_ms_per_step": wall * 1e3 / steps,
+           "profiler_s": time.perf_counter() - t0,
            "top": [(e.key[:70], round(e.self_device_time_total / 1e3
                                       / steps, 4)) for e in kernels[:top]]}
     if own:
@@ -1114,7 +1146,8 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6,
     else:
         print(f"profile {label}: device kernels {res['device_ms_per_step']:.2f}"
               f" ms/step, profiled host window "
-              f"{res['profiled_wall_ms_per_step']:.2f} ms/step; top kernels "
+              f"{res['profiled_wall_ms_per_step']:.2f} ms/step (the profiler "
+              f"took {res['profiler_s']:.1f} s); top kernels "
               f"(ms/step): {json.dumps(res['top'])}", flush=True)
         if own:
             print(f"profile {label}: {own} {res['own_ms_per_step']:.3f} "
@@ -3230,6 +3263,276 @@ def phase_zoo(tmp: Path) -> dict:
     return out
 
 
+REC_HYMBA = "hymba-1.5b"
+REC_RWKV = "rwkv6-7b"
+REC_WHISPER = "whisper-base"
+#: whisper's frames (its published encoder context) and prompt (under its
+#: published decoder context of 448 tokens).
+REC_FRAMES, REC_WHISPER_SEQ = 1500, 256
+#: (a): hymba's f32 prompt runs 5 mamba chunks of 64; the 2 layers'
+#: windows are global and 128, so the SWA layer slides over the prompt.
+REC_F32_SEQ = {REC_HYMBA: 320, REC_RWKV: 64, REC_WHISPER: 64}
+REC_F32_WINDOWS = (0, 128)
+#: Prefills of 4 x 2048 timed a model: rwkv's wkv recurrence is a host
+#: loop of 2 device operations a token and layer, so it is timed once (its
+#: first run), to keep phase 13 near 150 s; the others get a warm-up and
+#: two timed runs.
+REC_PREFILL_RUNS = {REC_HYMBA: 3, REC_RWKV: 1, REC_WHISPER: 3}
+#: Each model's weight seed (its recurrent constants: the seed + 1).
+REC_SEEDS = {REC_HYMBA: 50, REC_RWKV: 60, REC_WHISPER: 70}
+
+
+def redraw_recurrent(params, seed: int) -> None:
+    """Redraw, in place and from ``seed``, the recurrent parameters the
+    reference initialises to constants that hide a wrong port: rwkv's
+    ``mu`` and ``mu_c`` (uniform [0, 1): at 0 ``_mix`` returns x and a
+    wrong token shift never shows), ``bonus``, ``decay_base`` (normal x
+    0.5: at 0 the bonus term vanishes) and ``ln_x.scale`` (1 + normal x
+    0.1); mamba's ``A_log``, ``dt_bias`` (normal x 0.5) and ``D_skip``
+    (1 + normal x 0.1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for path, t in tree.leaves_with_paths(params):
+        name = path.split("/")[-1]
+        if name in ("mu", "mu_c"):
+            t.copy_(torch.rand(t.shape, generator=g, device="cuda"))
+        elif name in ("bonus", "decay_base", "dt_bias", "A_log"):
+            t.copy_(0.5 * torch.randn(t.shape, generator=g, device="cuda"))
+        elif name == "D_skip" or path.endswith("ln_x/scale"):
+            t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=g,
+                                            device="cuda"))
+
+
+def rec_frames(b: int, t: int, d: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, t, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+
+
+def rec_f32_check(name: str, seed: int) -> dict:
+    """(a) at full width in float32 with 2 layers: prefill's last logits
+    against the same prompt fed token by token through ``decode_step``
+    (whisper: a 1-token prefill writes the cross K/V, then decode_step
+    takes the rest)."""
+    upd = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    if name == REC_HYMBA:
+        upd["windows"] = REC_F32_WINDOWS
+    cfg = replace(get_arch(name), **upd)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    redraw_recurrent(params, seed + 1)
+    S = REC_F32_SEQ[name]
+    tok = lm_tokens(1, S, cfg.vocab, seed)
+    ex = ({"frames": rec_frames(1, REC_FRAMES, cfg.d_model, seed).float()}
+          if cfg.enc_dec else {})
+    pre, _ = model.prefill(params, tok, model.init_cache(1, S), **ex)
+    if cfg.enc_dec:
+        lg, cache = model.prefill(params, tok[:, :1], model.init_cache(1, S),
+                                  **ex)
+        for i in range(1, S):
+            lg, cache = model.decode_step(params, cache, tok[:, i:i + 1])
+    else:
+        lg = feed(model, params, tok, S)
+    err = logit_errors(pre[..., :cfg.vocab], lg[..., :cfg.vocab])
+    check(err["max_abs_err"] <= LM_F32_TOL * max(1.0, err["max_abs_ref"]),
+          f"rec (a) {name} f32 prefill vs decode: {err}")
+    print(f"rec (a) {name} full width, 2 layers, float32, {S} tokens"
+          + (f" (windows {REC_F32_WINDOWS}; {S // mamba_module.chunk_len(S)}"
+             f" mamba chunks of {mamba_module.chunk_len(S)})"
+             if name == REC_HYMBA else "")
+          + f": prefill vs decode_step {json.dumps(err)} tol {LM_F32_TOL:g} "
+          f"x max(1, max|ref|) ok", flush=True)
+    del model, params
+    free_memory()
+    return err
+
+
+def rec_prefill_vs_forward(model, params, seed: int) -> dict:
+    """Logit errors of a prefill of ZOO_CHECK_SEQ tokens and 2 decode
+    steps against ``forward`` over the S + 2 tokens, and, as the floor,
+    ``forward`` over the first S tokens against the same ``forward`` at
+    its position S - 1: one function on two lengths, which differ only in
+    how the mamba scan chunks (the reference's rule: 4 chunks of 128 at
+    512, 257 of 2 at 514) and in the products' shapes."""
+    cfg = model.cfg
+    S = ZOO_CHECK_SEQ
+    tok = lm_tokens(1, S + 2, cfg.vocab, seed)
+    dtype = cdt(cfg)
+    ex = ({"frames": rec_frames(1, REC_FRAMES, cfg.d_model, seed).to(dtype)}
+          if cfg.enc_dec else {})
+    x, _ = model.forward(params, tok, **ex)
+    want = model._head(params, x[:, S - 1:])[..., :cfg.vocab]
+    x, _ = model.forward(params, tok[:, :S], **ex)
+    floor = logit_errors(model._head(params, x[:, S - 1:])[..., :cfg.vocab],
+                         want[:, :1])
+    del x
+    lg, cache = model.prefill(params, tok[:, :S], model.init_cache(1, S + 2),
+                              **ex)
+    got = [lg]
+    for i in range(2):
+        lg, cache = model.decode_step(params, cache, tok[:, S + i:S + i + 1])
+        got.append(lg)
+    err = logit_errors(torch.cat(got, 1)[..., :cfg.vocab], want)
+    return err | {"floor": floor}
+
+
+def rec_depth_check(model, params, seed: int) -> dict:
+    """(b) at full depth: :func:`rec_prefill_vs_forward` in float32 on the
+    same weights (drawn in float32, then rounded for the bf16 model: the
+    same seeds), within the f32 limit; and in bfloat16 on the model, its
+    errors beside the floor, a finding. 32 layers of random weights
+    amplify each bf16 rounding difference between two paths, and hymba's
+    floor (two bf16 runs of one function) passes the LM slice's bf16
+    limit, so bf16 cannot tell a wrong cache path from rounding there;
+    float32 can."""
+    cfg = model.cfg
+    bf16 = rec_prefill_vs_forward(model, params, seed)
+    f32_cfg = replace(cfg, param_dtype="float32", compute_dtype="float32")
+    f32_model = build_model(f32_cfg)
+    f32_params = f32_model.init(
+        torch.Generator(device="cuda").manual_seed(REC_SEEDS[cfg.name]))
+    redraw_recurrent(f32_params, REC_SEEDS[cfg.name] + 1)
+    err = rec_prefill_vs_forward(f32_model, f32_params, seed)
+    del f32_model, f32_params
+    free_memory()
+    check(err["max_abs_err"] <= LM_F32_TOL * max(1.0, err["max_abs_ref"]),
+          f"rec (b) {cfg.name} f32 prefill + decode vs forward: {err}")
+    check(all(math.isfinite(bf16[k]) for k in ("max_abs_err",
+                                                "rel_l2_err")),
+          f"rec (b) {cfg.name} bf16 logits not finite: {bf16}")
+    print(f"rec (b) {cfg.name} check: prefill {ZOO_CHECK_SEQ} + 2 decode "
+          f"steps vs forward over {ZOO_CHECK_SEQ + 2} tokens at full depth "
+          f"({cfg.n_layers} layers), float32 {json.dumps(err)} tol "
+          f"{LM_F32_TOL:g} x max(1, max|ref|) ok; bf16, a finding: "
+          f"{json.dumps(bf16)} (the LM slice's bf16 limit "
+          f"{LM_BF16_TOL:g})", flush=True)
+    return {"float32": err, "bfloat16": bf16}
+
+
+def rec_prefills(model, params, tok, ex: dict) -> tuple:
+    """REC_PREFILL_RUNS prefills of ``tok``. Returns (logits, cache, the
+    runs' seconds)."""
+    cfg = model.cfg
+    secs = []
+    for _ in range(REC_PREFILL_RUNS[cfg.name]):
+        cache = model.init_cache(tok.shape[0], tok.shape[1] + ZOO_DECODE)
+        (logits, cache), sec = timed(lambda: model.prefill(params, tok,
+                                                           cache, **ex))
+        secs.append(sec)
+    check(logits.shape == (tok.shape[0], 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"rec {cfg.name} prefill logits not finite or of the wrong shape")
+    return logits, cache, secs
+
+
+def rec_run(name: str, seed: int, serve: bool) -> dict:
+    """One model of phase 13 at full width and depth in bfloat16: the
+    timed prefills, ZOO_DECODE greedy decode steps, profiler windows of
+    one prefill and one decode step, peak memory, ``ServeEngine`` in
+    cohort mode (``serve``), then checks (a)-(c)."""
+    cfg = get_arch(name)
+    snap = k4_snapshot()
+    f32 = rec_f32_check(name, seed + 7)
+    model, params, n = zoo_model(cfg, seed)
+    redraw_recurrent(params, seed + 1)
+    out = {"n_params": n}
+    if cfg.enc_dec:
+        B, S = ZOO_BATCH, REC_WHISPER_SEQ
+        frames = rec_frames(B, REC_FRAMES, cfg.d_model, seed + 2)
+        ex = {"frames": frames}
+        timed(lambda: model.encode(params, frames))
+        mem, sec = timed(lambda: model.encode(params, frames))
+        check(mem.shape == (B, REC_FRAMES, cfg.d_model)
+              and bool(torch.isfinite(mem).all()),
+              f"rec {name} encoder output not finite or of the wrong shape")
+        out["encode_ms"] = sec * 1e3
+        print(f"rec {name} encode of frames {tuple(frames.shape)}: "
+              f"{sec * 1e3:.2f} ms (after a warm-up)", flush=True)
+        del mem
+    else:
+        B, S = ZOO_BATCH, ZOO_SEQ
+        ex = {}
+    tok = lm_tokens(B, S, cfg.vocab, seed + 3)
+    logits, cache, secs = rec_prefills(model, params, tok, ex)
+    dec_ms = zoo_decode(model, params, cache, logits, ZOO_DECODE)
+    state = {"cache": cache,
+             "nxt": logits[:, -1].argmax(-1, keepdim=True)}
+    del cache
+    prof = device_profile(lambda: model.prefill(
+        params, tok, model.init_cache(B, S + 1), **ex),
+        f"rec {name} prefill {B} x {S}", top=5,
+        host_ops=cfg.mixer != "rwkv")
+    prof_dec = device_profile(lambda: model.decode_step(
+        params, state["cache"], state["nxt"]), f"rec {name} decode batch {B}",
+        top=5)
+    del state
+    ms = (statistics.median(secs[1:]) if len(secs) > 1 else secs[0]) * 1e3
+    out |= {"prefill_shape": [B, S], "prefill_ms": ms,
+            "prefill_runs_ms": [x * 1e3 for x in secs],
+            "prefill_tok_s": tok.numel() / (ms / 1e3),
+            "decode_ms_per_step": dec_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefill_busy_share": prof["device_ms_per_step"] / ms,
+            "decode_busy_share": prof_dec["device_ms_per_step"] / dec_ms,
+            "profile_prefill": prof, "profile_decode": prof_dec}
+    if serve:
+        out["serve"] = zoo_serve(model, params, 8, "cohort")
+    n_k4, _ = k4_since(snap)
+    check(n_k4 == 0, f"rec {name} path launched K4 {n_k4} times, want 0 "
+          f"(d_head {cfg.d_head} is no flash head dim)")
+    out["k4_launches"] = n_k4
+    out["f32_prefill_vs_decode"] = f32
+    out["prefill_vs_forward"] = rec_depth_check(model, params, seed + 4)
+    n_k4, _ = k4_since(snap)
+    check(n_k4 == 0, f"rec {name} checks launched K4 {n_k4} times")
+    sv = out.get("serve")
+    b32, b16 = (out["prefill_vs_forward"][k] for k in ("float32", "bfloat16"))
+    print(f"rec {name} on {nvidia_smi()}: {n / 1e9:.4f} B parameters, bf16 "
+          f"x {cfg.n_layers}"
+          + (f"+{cfg.n_enc_layers}" if cfg.enc_dec else "")
+          + f" layers; prefill {B} x {S} runs "
+          f"{[round(x * 1e3, 1) for x in secs]} ms (timed: "
+          f"{ms:.1f} ms, {out['prefill_tok_s']:.0f} tokens/s); decode "
+          f"{dec_ms:.2f} ms/step at batch {B}; device busy "
+          f"{out['prefill_busy_share']:.0%} of a prefill, "
+          f"{out['decode_busy_share']:.0%} of a decode step; top prefill "
+          f"kernels {json.dumps(prof['top'])}; peak {out['peak_gb']:.2f} GB"
+          + (f"; served {sv['requests_completed']} requests in "
+             f"{sv['mode']} mode, {sv['steps']} steps, "
+             f"{sv['tok_s']:.1f} tokens/s" if sv else "")
+          + f"; (a) {f32['max_abs_err']:.3g} of max|ref| "
+          f"{f32['max_abs_ref']:.3g}; (b) f32 max abs {b32['max_abs_err']:.3g}"
+          f" of {b32['max_abs_ref']:.3g}, bf16 rel L2 {b16['rel_l2_err']:.3g}"
+          f" (floor {b16['floor']['rel_l2_err']:.3g}); (c) K4 launches 0",
+          flush=True)
+    del model, params, logits
+    free_memory()
+    return out
+
+
+def phase_recurrent() -> dict:
+    """Phase 13: the recurrent and encoder-decoder families on the card,
+    one model at a time at full width and depth, each freed before the
+    next."""
+    t0 = time.perf_counter()
+    free_memory()
+    print(f"phase 13 (recurrent and enc-dec) on {nvidia_smi()} starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    out = {}
+    for name, serve in ((REC_HYMBA, True), (REC_RWKV, True),
+                        (REC_WHISPER, False)):
+        t = time.perf_counter()
+        out[name] = rec_run(name, seed=REC_SEEDS[name], serve=serve)
+        out[name]["seconds"] = time.perf_counter() - t
+        print(f"rec {name} took {out[name]['seconds']:.1f}s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+              f"allocated", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 (recurrent and enc-dec) took {out['seconds']:.1f}s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3295,6 +3598,7 @@ def main() -> int:
             counts[name] += n
         for key, n in zoo["by_body"].items():
             by["flash_attention"][key] = by["flash_attention"].get(key, 0) + n
+        phase_recurrent()
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

@@ -29,6 +29,17 @@ def cdt(cfg: ArchConfig) -> torch.dtype:
 
 # ---------------------------------------------------------------- init ----
 
+def init_generator(generator, device: torch.device):
+    """The generator an ``init`` draws from: ``generator`` itself, a new
+    one on ``device`` seeded with it (an int, or 0 for ``None``), or
+    ``None`` on the ``meta`` device, where nothing is drawn."""
+    if device.type == "meta":
+        return None
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=device).manual_seed(int(generator or 0))
+
+
 def _normal(generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=device)
@@ -130,6 +141,19 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def lm_head(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the hidden states ``x`` through the tied embedding or
+    ``p["head"]``, softcapped, the padded vocab columns at -1e30."""
+    head = p["embed"].T if cfg.tie_embeddings else p["head"]
+    logits = x @ head.to(x.dtype)
+    logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab:
+        valid = torch.arange(cfg.padded_vocab, device=logits.device) \
+            < cfg.vocab
+        logits = torch.where(valid, logits, -1e30)
+    return logits
 
 
 # ----------------------------------------------------------------- loss ----

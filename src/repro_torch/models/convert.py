@@ -1,19 +1,24 @@
-"""Weights from the JAX package's ``DecoderLM.init`` pytree, for the port.
+"""Weights from the JAX package's ``DecoderLM.init`` / ``EncDecLM.init``
+pytree, for the port.
 
 ``params_from_jax(cfg, params)`` takes that pytree as nested dicts (and
 lists) of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``)
 and returns the port's parameters, whose stacked layers are split into
 lists of per-layer dicts:
 
-* dense: ``"layers"`` stacked ``(L, ...)`` -> a list of L layers;
+* dense, mamba+attn (each block's ``mamba`` subtree included) and rwkv:
+  ``"layers"`` stacked ``(L, ...)`` -> a list of L layers;
 * MoE (and MLA): ``"dense_prefix"``, already a list in the reference,
   stays one; ``"layers"`` stacked ``(n_layers - len(dense_layers), ...)``
   -> a list of that many MoE layers;
 * vision: ``"cross"`` stacked ``(G, ...)`` -> a list of G cross blocks,
   ``"layers"`` stacked ``(G, period - 1, ...)`` -> a list of G lists of
-  ``period - 1`` self layers.
+  ``period - 1`` self layers;
+* encoder-decoder: ``"encoder"`` stacked ``(n_enc_layers, ...)`` and
+  ``"decoder"`` stacked ``(n_layers, ...)`` -> lists of per-layer dicts.
 
-Every other entry (embedding, head, final norm) is copied as it is.
+Every other entry (embedding, head, final norms, learned positions) is
+copied as it is.
 Dtypes are kept; bfloat16 arrays (``ml_dtypes``) cross through a 16-bit
 view, as ``core/capture.py`` does. Nothing here imports JAX: the arrays
 are numpy.
@@ -27,7 +32,6 @@ import torch
 from repro_torch.core.capture import to_torch
 
 from .config import ArchConfig
-from .transformer import check_supported
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -54,10 +58,13 @@ def _unstack(tree, n: int, device, index=()) -> list:
 def params_from_jax(cfg: ArchConfig, params: dict,
                     device: str | torch.device = "cpu") -> dict:
     """The port's parameters for ``cfg`` from the reference's (numpy)."""
-    check_supported(cfg)
-    stacked = {"layers", "cross"}
+    stacked = {"layers", "cross", "encoder", "decoder"}
     out = {k: _tree(v, lambda a: _tensor(a, device))
            for k, v in params.items() if k not in stacked}
+    if cfg.enc_dec:
+        out["encoder"] = _unstack(params["encoder"], cfg.n_enc_layers, device)
+        out["decoder"] = _unstack(params["decoder"], cfg.n_layers, device)
+        return out
     if cfg.cross_attn_period:
         groups = cfg.n_layers // cfg.cross_attn_period
         n_self = cfg.cross_attn_period - 1

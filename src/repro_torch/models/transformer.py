@@ -10,15 +10,26 @@ The families the port builds:
     deepseek-v2 swaps GQA for MLA (``models/mla.py``);
   * vision (llama-3.2-vision): period-grouped stack, each group one gated
     cross-attention block over the image embeddings + (period-1)
-    self-attention layers.
+    self-attention layers;
+  * mamba+attn (hymba): each layer's attention and selective-SSM heads
+    read the same normed input and their outputs are summed
+    (``models/mamba.py``);
+  * rwkv (rwkv6): time-mix + channel-mix, no attention
+    (``models/rwkv.py``).
+
+Learned absolute positions (``cfg.pos == "learned"``: ``pos_embed``,
+added at the embedding) are supported as in the reference; no shipped
+decoder config uses them.
 
 The reference scans one layer body over stacked ``(L, ...)`` parameters.
 The port keeps per-layer dicts in lists and loops over them in Python:
 ``params["layers"]`` is a list of L layers for the dense family, a list of
 the ``n_layers - len(dense_layers)`` MoE layers beside
-``params["dense_prefix"]`` (a list, as in the reference) for MoE, and a
+``params["dense_prefix"]`` (a list, as in the reference) for MoE, a
 list of G lists of ``period - 1`` self layers beside ``params["cross"]``
-(a list of G cross blocks) for vision. Layer ``i`` gets the window
+(a list of G cross blocks) for vision, and a list of L layers (each
+``{"ln1", "ln2", "rwkv"}``; hymba's blocks add ``"mamba"``) for the
+recurrent mixers. Layer ``i`` gets the window
 ``int(cfg.layer_windows[i])`` (vision's self layers ``FULL_WINDOW``).
 Under the reference's own static-window rule (``attention._attn_core``)
 every such layer with ``d_head % 128 == 0``, no window and no softcap
@@ -32,16 +43,20 @@ Caches keep the reference's layout: ``{"pos", "kv": {"k", "v"}}`` with
 dense prefix, ``mla`` / ``mla_dense`` latent caches (``{"c_kv", "k_pe"}``,
 ``(L, B, max_seq, *)``) in place of ``kv`` / ``kv_dense`` for MLA, and
 ``cross_kv`` (``(G, B, Hkv, n_img_tokens, D)``, written by prefill) for
-vision. Every cache is written in place; ``pos`` is a host int. An
+vision; hymba adds ``mamba`` (``{"ssm": (L, B, d_inner, d_state)`` f32,
+``"conv": (L, B, d_conv - 1, d_inner)``}), and rwkv keeps only ``rwkv``
+(``{"wkv": (L, B, H, hd, hd)`` f32, ``"prev_t"``, ``"prev_c"``: (L, B,
+D)}). Every cache is written in place; ``pos`` is a host int. An
 optional ``cache["start"]`` (B,) tensor scopes decode attention per slot
 (token-level serving) in the stacks that honour it
-(:attr:`DecoderLM.decode_supports_start`). mamba, rwkv, enc-dec and
-learned-position stacks raise ``NotImplementedError``.
+(:attr:`DecoderLM.decode_supports_start`); the recurrent stacks are
+served in cohorts.
 
 Training: ``loss`` is the reference's (chunked cross entropy over the
 final hidden states, plus the router's weighted auxiliary losses for
 MoE). With ``remat=True`` each layer the reference scans (every layer of
-a dense stack, the MoE layers, each vision group) runs under
+a dense, hybrid or rwkv stack, the MoE layers, each vision group) runs
+under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
 scanned body in ``jax.checkpoint``; the backward recomputes it, flash
 launches included (``kernels.flash_attention.FlashAttentionFn``).
@@ -55,32 +70,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
+from . import mamba as M
 from . import mla as ML
 from . import moe as MO
+from . import rwkv as R
 from .common import (apply_mlp, apply_norm, cdt, chunked_ce_loss,
-                     dense_init, dt, embed_init, init_mlp, init_norm, softcap)
+                     dense_init, dt, embed_init, init_generator, init_mlp,
+                     init_norm, lm_head)
 from .config import ArchConfig, FULL_WINDOW
 
 Params = dict
 Cache = dict
 AUX_KEYS = ("moe_load_balance", "moe_z_loss")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot build,
-    naming the ROADMAP.md item (queue 1) that ports it."""
-    missing = []
-    if cfg.enc_dec:
-        missing.append("encoder-decoder (item 9)")
-    if cfg.mixer != "attn":
-        missing.append(f"mixer {cfg.mixer!r} (item 9)")
-    if cfg.pos == "learned":
-        missing.append("learned positions (item 9, with enc-dec)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds attention stacks (dense, MoE, MLA, "
-            f"vision) only; not ported yet: {', '.join(missing)} "
-            f"(ROADMAP.md queue 1)")
 
 
 class DecoderLM:
@@ -89,7 +90,6 @@ class DecoderLM:
 
     def __init__(self, cfg: ArchConfig, device: torch.device | str,
                  remat: bool = False):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.remat = remat      # activation-checkpoint each scanned layer
@@ -112,11 +112,7 @@ class DecoderLM:
         drawn and the generator is ignored."""
         cfg = self.cfg
         dev = self.device
-        if dev.type == "meta":
-            generator = None
-        elif not isinstance(generator, torch.Generator):
-            generator = torch.Generator(device=dev).manual_seed(
-                int(generator or 0))
+        generator = init_generator(generator, dev)
         dtype = dt(cfg)
         p: Params = {
             "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model),
@@ -126,8 +122,16 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             p["head"] = dense_init(generator, (cfg.d_model, cfg.padded_vocab),
                                    dtype, dev)
+        if cfg.pos == "learned":
+            p["pos_embed"] = embed_init(generator, (cfg.max_seq, cfg.d_model),
+                                        dtype, dev)
         if cfg.cross_attn_period:
             p.update(self._init_vision(generator))
+        elif cfg.mixer == "rwkv":
+            p["layers"] = [{"ln1": self._norm_stack(),
+                            "ln2": self._norm_stack(),
+                            "rwkv": R.init_rwkv(generator, cfg, dev)}
+                           for _ in range(cfg.n_layers)]
         elif cfg.moe is not None:
             n_dense = len(cfg.dense_layers)
             if cfg.dense_layers != tuple(range(n_dense)):
@@ -152,6 +156,8 @@ class DecoderLM:
             blk["mla"] = ML.init_mla(generator, cfg, self.device)
         else:
             blk["attn"] = A.init_attn(generator, cfg, self.device)
+        if cfg.mixer == "mamba+attn":
+            blk["mamba"] = M.init_mamba(generator, cfg, self.device)
         if moe:
             blk["moe"] = MO.init_moe(generator, cfg, self.device)
         else:
@@ -187,19 +193,18 @@ class DecoderLM:
     def _window(self, i: int) -> int:
         return int(self.cfg.layer_windows[i])
 
-    def _embed(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return p["embed"][tokens.long()].to(cdt(self.cfg))
+    def _embed(self, p: Params, tokens: torch.Tensor, pos: int = 0
+               ) -> torch.Tensor:
+        """Token embeddings of ``tokens`` (B, T) at positions [pos,
+        pos + T), plus the learned positions there where the config has
+        them."""
+        x = p["embed"][tokens.long()].to(cdt(self.cfg))
+        if self.cfg.pos == "learned":
+            x = x + p["pos_embed"][pos:pos + tokens.shape[1]].to(x.dtype)
+        return x
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        head = p["embed"].T if cfg.tie_embeddings else p["head"]
-        logits = x @ head.to(x.dtype)
-        logits = softcap(logits.to(torch.float32), cfg.final_softcap)
-        if cfg.padded_vocab != cfg.vocab:
-            valid = torch.arange(cfg.padded_vocab, device=logits.device) \
-                < cfg.vocab
-            logits = torch.where(valid, logits, -1e30)
-        return logits
+        return lm_head(self.cfg, p, x)
 
     def _ffn(self, blk: dict, h: torch.Tensor):
         """The block's FFN: (y, aux), aux None for a dense MLP."""
@@ -226,7 +231,17 @@ class DecoderLM:
             mix = ML.mla_forward(cfg, blk["mla"], h)
         else:
             mix = A.attn_forward(cfg, blk["attn"], h, window=window)
+        if cfg.mixer == "mamba+attn":
+            mix = mix + M.mamba_forward(cfg, blk["mamba"], h)
         return self._block_tail(blk, x, mix)
+
+    def _rwkv_fwd(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
+        """One rwkv layer: time-mix, then channel-mix, each pre-norm."""
+        cfg = self.cfg
+        h = apply_norm(cfg, blk["ln1"], x)
+        x = x + R.rwkv_time_mix(cfg, blk["rwkv"], h)
+        h = apply_norm(cfg, blk["ln2"], x)
+        return x + R.rwkv_channel_mix(cfg, blk["rwkv"], h)
 
     def forward(self, p: Params, tokens: torch.Tensor,
                 img: torch.Tensor | None = None
@@ -240,6 +255,9 @@ class DecoderLM:
                for k in AUX_KEYS}
         if cfg.cross_attn_period:
             x = self._vision_fwd(p, x, img)
+        elif cfg.mixer == "rwkv":
+            for blk in p["layers"]:
+                x = self._maybe_remat(self._rwkv_fwd, blk, x)
         else:
             n_dense = self._n_dense
             for i in range(n_dense):
@@ -308,6 +326,10 @@ class DecoderLM:
         cfg = self.cfg
         dtype, dev = cdt(cfg), self.device
         cache: Cache = {"pos": 0}
+        if cfg.mixer == "rwkv":
+            cache["rwkv"] = R.init_rwkv_cache(cfg, cfg.n_layers, batch, dtype,
+                                              dev)
+            return cache
         n_dense = self._n_dense
         n_scan = cfg.n_layers - n_dense
         if cfg.cross_attn_period:
@@ -332,24 +354,35 @@ class DecoderLM:
             if n_dense:
                 cache["kv_dense"] = A.init_kv_cache(cfg, n_dense, batch,
                                                     max_seq, dtype, dev)
+        if cfg.mixer == "mamba+attn":
+            cache["mamba"] = M.init_mamba_cache(cfg, cfg.n_layers, batch,
+                                                dtype, dev)
         return cache
 
     def _layer_caches(self, cache: Cache, dense: bool) -> list[dict]:
         """Per-layer views of a stack's cache, as keyword arguments of
         :meth:`_block_decode` / :meth:`_block_prefill`: ``kv`` or ``mla``
-        pairs of the dense prefix (``dense``) or of the other layers."""
+        pairs of the dense prefix (``dense``) or of the other layers, and
+        for hymba each layer's ``mamba`` (ssm, conv) pair."""
         suffix = "_dense" if dense else ""
         if self.cfg.mla is not None:
             c = cache["mla" + suffix]
-            return [{"mla": (a, b)} for a, b in zip(c["c_kv"], c["k_pe"])]
-        c = cache["kv" + suffix]
-        return [{"kv": (a, b)} for a, b in zip(c["k"], c["v"])]
+            out = [{"mla": (a, b)} for a, b in zip(c["c_kv"], c["k_pe"])]
+        else:
+            c = cache["kv" + suffix]
+            out = [{"kv": (a, b)} for a, b in zip(c["k"], c["v"])]
+        if self.cfg.mixer == "mamba+attn":
+            m = cache["mamba"]
+            for c, a, b in zip(out, m["ssm"], m["conv"]):
+                c["mamba"] = (a, b)
+        return out
 
     def _block_decode(self, blk: dict, x, window, pos: int, kv=None,
-                      mla=None, start=None) -> torch.Tensor:
-        """One-layer decode; writes the layer's cache at ``pos`` in place.
-        ``start`` (per-slot attention-window origins, token-level serving)
-        only reaches the plain-attention path, as in the reference."""
+                      mla=None, mamba=None, start=None) -> torch.Tensor:
+        """One-layer decode; writes the layer's cache at ``pos`` (and its
+        mamba state and conv window) in place. ``start`` (per-slot
+        attention-window origins, token-level serving) only reaches the
+        plain-attention path, as in the reference."""
         cfg = self.cfg
         h = apply_norm(cfg, blk["ln1"], x)
         if cfg.mla is not None:
@@ -357,6 +390,11 @@ class DecoderLM:
         else:
             mix, _, _ = A.attn_decode(cfg, blk["attn"], h, kv[0], kv[1], pos,
                                       window=window, start=start)
+        if mamba is not None:
+            mo, ssm, win = M.mamba_decode(cfg, blk["mamba"], h, *mamba)
+            mamba[0].copy_(ssm)
+            mamba[1].copy_(win)
+            mix = mix + mo
         return self._block_tail(blk, x, mix)[0]
 
     @property
@@ -379,9 +417,11 @@ class DecoderLM:
         attention to cache positions [start[b], pos] (see
         :attr:`decode_supports_start`)."""
         pos = int(cache["pos"])
-        x = self._embed(p, tokens)
+        x = self._embed(p, tokens, pos)
         cache = dict(cache)
-        if self.cfg.cross_attn_period:
+        if self.cfg.mixer == "rwkv":
+            x = self._rwkv_cached(p, x, cache["rwkv"], decode=True)
+        elif self.cfg.cross_attn_period:
             x = self._vision_decode(p, x, cache, pos)
         else:
             x = self._stack_decode(p, x, cache, pos, start=cache.get("start"))
@@ -389,6 +429,32 @@ class DecoderLM:
         logits = self._head(p, x)
         cache["pos"] = pos + 1
         return logits, cache
+
+    def _rwkv_cached(self, p, x, rc: dict, decode: bool):
+        """The rwkv stack with its cache ``rc``: one token from each
+        layer's wkv state and shifts (``decode``), or the prompt from zero
+        state (prefill). Each layer's new state and last-token shifts
+        (cast to the compute dtype) are written into ``rc`` in place."""
+        cfg = self.cfg
+        for i, blk in enumerate(p["layers"]):
+            h = apply_norm(cfg, blk["ln1"], x)
+            if decode:
+                o, wkv, prev_t = R.rwkv_time_mix_decode(
+                    cfg, blk["rwkv"], h, rc["wkv"][i], rc["prev_t"][i])
+            else:
+                o, wkv, prev_t = R.rwkv_time_mix_prefill(cfg, blk["rwkv"], h)
+            x = x + o
+            h = apply_norm(cfg, blk["ln2"], x)
+            if decode:
+                o, prev_c = R.rwkv_channel_mix_decode(cfg, blk["rwkv"], h,
+                                                      rc["prev_c"][i])
+            else:
+                o, prev_c = R.rwkv_channel_mix_prefill(cfg, blk["rwkv"], h)
+            x = x + o
+            for key, new in (("wkv", wkv), ("prev_t", prev_t),
+                             ("prev_c", prev_c)):
+                rc[key][i].copy_(new)
+        return x
 
     def _stack_decode(self, p, x, cache, pos: int, start=None):
         n_dense = self._n_dense
@@ -424,7 +490,9 @@ class DecoderLM:
         S = tokens.shape[1]
         x = self._embed(p, tokens)
         cache = dict(cache)
-        if self.cfg.cross_attn_period:
+        if self.cfg.mixer == "rwkv":
+            x = self._rwkv_cached(p, x, cache["rwkv"], decode=False)
+        elif self.cfg.cross_attn_period:
             x = self._vision_prefill(p, x, cache, img)
         else:
             x = self._stack_prefill(p, x, cache)
@@ -433,8 +501,8 @@ class DecoderLM:
         logits = self._head(p, x[:, -1:])
         return logits, cache
 
-    def _block_prefill(self, blk: dict, x, window, kv=None, mla=None
-                       ) -> torch.Tensor:
+    def _block_prefill(self, blk: dict, x, window, kv=None, mla=None,
+                       mamba=None) -> torch.Tensor:
         cfg = self.cfg
         h = apply_norm(cfg, blk["ln1"], x)
         if cfg.mla is not None:
@@ -442,6 +510,11 @@ class DecoderLM:
         else:
             mix, _, _ = A.attn_prefill(cfg, blk["attn"], h, kv[0], kv[1],
                                        window=window)
+        if mamba is not None:
+            mo, ssm, win = M.mamba_prefill(cfg, blk["mamba"], h)
+            mamba[0].copy_(ssm)
+            mamba[1].copy_(win)     # the input before the conv
+            mix = mix + mo
         return self._block_tail(blk, x, mix)[0]
 
     def _stack_prefill(self, p, x, cache):

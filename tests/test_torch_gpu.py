@@ -1100,3 +1100,65 @@ def test_flash_attention_gqa_32_8_matches_plain_version(cuda_device):
     row = flash_attention.row_l2_error(got.reshape(32, 512, 128),
                                        want.reshape(32, 512, 128))
     assert row <= flash_attention.ROW_L2_TOL["bfloat16"], row
+
+
+# ------------------------------------------- the recurrent and enc-dec stacks
+
+def _redraw_recurrent(params: dict, g: torch.Generator) -> None:
+    """Redraw, in place, the parameters the reference initialises to 0 or
+    1 (rwkv's ``mu``, ``mu_c``, ``bonus``, ``decay_base``, ``ln_x.scale``;
+    mamba's ``A_log``, ``dt_bias``, ``D_skip``), which would hide a wrong
+    token shift, bonus or decay."""
+    from repro_torch import tree
+
+    for path, t in tree.leaves_with_paths(params):
+        name = path.split("/")[-1]
+        if name in ("mu", "mu_c"):
+            t.copy_(torch.rand(t.shape, generator=g))
+        elif name in ("bonus", "decay_base", "dt_bias", "A_log"):
+            t.copy_(0.5 * torch.randn(t.shape, generator=g))
+        elif name == "D_skip" or path.endswith("ln_x/scale"):
+            t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=g))
+
+
+@pytest.mark.parametrize("arch,upd,seq", [
+    ("hymba-1.5b", dict(n_layers=3), 256),
+    ("rwkv6-7b", dict(n_layers=2), 64),
+    ("whisper-base", dict(n_layers=2, enc_seq=32), 64)])
+def test_recurrent_stacks_on_card_match_the_host(cuda_device, arch, upd,
+                                                 seq):
+    """A reduced hymba (windows full, 8, full; 256 tokens: the mamba scan
+    carries its state across 2 chunks of 128), rwkv6 and whisper (32
+    frames), float32, the zero-initialised recurrent parameters redrawn:
+    forward, prefill and 2 decode steps on the card match the CPU within
+    1e-4 (both IEEE float32), and none of them launches K4 (d_head 16
+    here; the full configs' 64 is no flash head dim either)."""
+    model = _zoo_model("cpu", arch, **upd)
+    card = _zoo_model(cuda_device, arch, **upd)
+    cfg = model.cfg
+    params = model.init(0)
+    g = torch.Generator().manual_seed(4)
+    _redraw_recurrent(params, g)
+    tokens = torch.randint(0, cfg.vocab, (2, seq + 2), generator=g)
+    extra = ({"frames": torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                    generator=g)} if cfg.enc_dec else {})
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    n0 = fa.launches
+    outs = {}
+    for m, dev in ((model, "cpu"), (card, cuda_device)):
+        p = _to(params, dev)
+        ex = {k: v.to(dev) for k, v in extra.items()}
+        tok = tokens.to(dev)
+        with torch.no_grad():
+            x, _ = m.forward(p, tok[:, :seq], **ex)
+            lg, cache = m.prefill(p, tok[:, :seq], m.init_cache(2, seq + 2),
+                                  **ex)
+            got = [lg]
+            for i in range(2):
+                lg, cache = m.decode_step(p, cache,
+                                          tok[:, seq + i:seq + i + 1])
+                got.append(lg)
+        outs[str(dev)] = (x.cpu(), torch.cat(got, 1).cpu())
+    assert fa.launches == n0
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -29,7 +29,7 @@ from repro.models import build_model as repro_build
 from repro.models import common as repro_common
 from repro.models.common import KeyGen
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, common
@@ -292,15 +292,23 @@ def test_full_codeqwen_param_count_on_meta():
     assert 8.1e9 < cfg.n_params() < 8.3e9
 
 
-def test_other_families_raise_with_their_roadmap_item():
-    """The reference's architectures still to port (ROADMAP.md queue 1
-    item 9). The MoE, MLA and vision ones are built, and held to the
-    reference in ``tests/test_torch_zoo.py``."""
-    for name in ("hymba-1.5b", "rwkv6-7b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_arch(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(repro_arch(name), device="cpu")
+def test_every_reference_architecture_builds():
+    """``get_arch`` and ``build_model`` build all ten of the reference's
+    architectures (an ``EncDecLM`` for whisper, a ``DecoderLM`` for the
+    rest; each held to the reference in ``tests/test_torch_models.py``,
+    ``test_torch_zoo.py`` and ``test_torch_recurrent.py``), and an
+    unknown name still raises ``KeyError``."""
+    names = ["codeqwen1.5-7b", "deepseek-moe-16b", "deepseek-v2-236b",
+             "gemma2-2b", "h2o-danube-1.8b", "hymba-1.5b",
+             "llama-3.2-vision-11b", "rwkv6-7b", "stablelm-1.6b",
+             "whisper-base"]
+    assert list_archs() == names
+    for name in names:
+        cfg = get_arch(name)
+        model = build_model(cfg.reduced(), device="cpu")
+        assert type(model).__name__ == ("EncDecLM" if cfg.enc_dec
+                                        else "DecoderLM")
+        assert build_model(cfg, device="meta").cfg is cfg
     with pytest.raises(KeyError):
         get_arch("no-such-model")
 
