@@ -209,17 +209,44 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    LM slice's bf16 limits; (c) K4 launched 0 times on the path and in
    the checks (d_head 64 is no flash head dim, as in the reference).
    One line a model gives the card's name and power limit and every
-   reading.
+   reading;
+14. the multi-device launcher and the roofline (``repro_torch.launch``,
+   ``repro_torch.roofline``): (a) on the production meshes, 16x16 and
+   2x16x16 on fake process groups of 256 and 512 ranks holding ``meta``
+   shards (the card's memory is not touched), every architecture's
+   parameter specs (train and serve) and the caches of decode_32k and
+   long_500k where they run must divide; then ``lower_cell`` dry-runs,
+   each cell in a process of its own on the host's cores, started before
+   phase 13 so it counts while the card runs phase 13 and (b),
+   codeqwen1.5-7b x {train_4k, prefill_32k, decode_32k} and
+   deepseek-moe-16b x train_4k on the single pod and codeqwen1.5-7b x
+   train_4k on the multi-pod mesh, each ``ok`` with collective bytes > 0
+   and its counted flops over all chips within 0.8-8 x ``model_flops``
+   (the reference's bound), printing per-chip flops, bytes, collective
+   bytes by kind, argument GiB, the roofline terms on the H100's peaks,
+   the dominant term and the seconds it took; (b) on the card's 1x1
+   debug mesh, codeqwen1.5-7b at full width with seeded random bf16
+   weights: prefill_32k at batch 1 (32 layers, K4 at BH 32 x S 32 768),
+   decode_32k at batch 2 (one step against a 32 768-token cache) and
+   train_4k cut to 2 layers at batch 8 in 8 microbatches of 1 x 4096
+   (remat); each counted once (K4 through its workload hook, which must
+   see half the launches its counter sees) and timed once after it, by
+   host clock between syncs: flops (within the bound of (a)), bytes,
+   the roofline terms, ``ideal_s`` over the step, peak memory, K4's
+   launches by body (> 0 in prefill and train) and the train loss
+   (finite); then each cell counted again on ``meta`` under a fake 1x1
+   mesh, its microbatches by trip count, beside the card's count.
 
 Launch counts are set to 0 just before each path (phases 3-4, phase 5,
 phase 11a's driver run) and read just after; phase 12 reads K4's
 launches around each model's path (its prefills, decode steps, profiler
 windows and serving), before that model's checks, and holds them to the
 number of prefills times the flash layers; phase 13 holds K4's launches
-around each model's path and checks to 0. Every
+around each model's path and checks to 0; phase 14 reads K4's launches
+around each debug-mesh cell. Every
 kernel of the path must have launched there. The
 last two lines are the ``kernels`` JSON (each kernel's launches on its path,
-in all and by body and dtype; K4's include phase 12's) and ``{"ok": true,
+in all and by body and dtype; K4's include phases 12 and 14) and ``{"ok": true,
 "device": ...}``.
 With no card, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.
@@ -255,7 +282,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     latest_step, load_checkpoint)
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import get_arch, list_archs  # noqa: E402
 from repro_torch.core import (WisdomKernel, current_device_kind,  # noqa: E402
                               get_kernel, list_captures)
 from repro_torch.core.capture import CAPTURE_DIR_ENV, CAPTURE_ENV  # noqa: E402
@@ -279,6 +306,14 @@ from repro_torch.fleet.cli import main as fleet_cli  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
                                  flash_attention, matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.launch.dryrun import (lower_cell,  # noqa: E402
+                                       run_cell_process)
+from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
+                                     make_fake_mesh, make_production_mesh,
+                                     release)
+from repro_torch.launch.shapes import (SHAPES, cell_skip_reason,  # noqa: E402
+                                       input_specs, params_shape)
 from repro_torch.models import attention, build_model  # noqa: E402
 from repro_torch.models import mamba as mamba_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
@@ -288,6 +323,7 @@ from repro_torch.obs import runtime as obs_runtime  # noqa: E402
 from repro_torch.online import enable_online_tuning  # noqa: E402
 from repro_torch.online.promotion import PromotionPipeline  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.roofline import HW  # noqa: E402
 from repro_torch.prof import (DEFAULT_TRAIN_EVERY, PROF_ENV,  # noqa: E402
                               classify_dataset, process_profiler,
                               profile_from_workload, rerank_gate,
@@ -3533,6 +3569,200 @@ def phase_recurrent() -> dict:
     return out
 
 
+#: (a): the production-mesh cells dry-run on ``meta`` under a fake group:
+#: (arch, shape, multi-pod).
+DRY_CELLS = (("codeqwen1.5-7b", "train_4k", False),
+             ("codeqwen1.5-7b", "prefill_32k", False),
+             ("codeqwen1.5-7b", "decode_32k", False),
+             ("deepseek-moe-16b", "train_4k", False),
+             ("codeqwen1.5-7b", "train_4k", True))
+#: (b): codeqwen1.5-7b's cells on the 1x1 debug mesh on the card, each
+#: cut (global batch; layers, where given) to fit the card's 80 GB.
+DEBUG_CUTS = {"prefill_32k": {"global_batch": 1},
+              "decode_32k": {"global_batch": 2},
+              "train_4k": {"global_batch": 8, "n_layers": 2}}
+#: The reference's bound on counted over model FLOPs
+#: (``tests/test_sharding_dryrun.py``).
+FLOPS_BOUND = (0.8, 8.0)
+LAUNCH_SEED = 140
+
+
+def flops_in_bound(rec: dict, label: str) -> float:
+    """Counted FLOPs over all chips against ``model_flops``: within
+    :data:`FLOPS_BOUND`, or raise. Returns the ratio."""
+    ratio = rec["hlo_walk"]["flops"] * rec["chips"] \
+        / rec["roofline"]["model_flops"]
+    lo, hi = FLOPS_BOUND
+    check(lo < ratio < hi, f"{label}: counted flops are {ratio:.3g} x "
+          f"model_flops, outside ({lo}, {hi})")
+    return ratio
+
+
+def launch_specs_check() -> dict:
+    """(a) Every architecture's parameter specs (train and serve) and the
+    caches of decode_32k and long_500k, where they run, divide on both
+    production meshes."""
+    shapes = {arch: (params_shape(get_arch(arch)), [
+        input_specs(get_arch(arch), SHAPES[name])["cache"]
+        for name in ("decode_32k", "long_500k")
+        if cell_skip_reason(get_arch(arch), SHAPES[name]) is None])
+        for arch in list_archs()}
+    out = {}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        n = 0
+        for arch, (params, caches) in shapes.items():
+            cfg = get_arch(arch)
+            trees = [(params, sharding.param_pspecs(params, mesh, cfg)),
+                     (params, sharding.param_pspecs(params, mesh, cfg,
+                                                    serve=True))]
+            trees += [(c, sharding.cache_pspecs(c, mesh)) for c in caches]
+            for tree_, specs in trees:
+                bad = sharding.validate_specs(tree_, specs, mesh)
+                check(bad == [], f"{arch} specs on "
+                      f"{tuple(mesh.mesh.shape)}: {bad[:3]}")
+                n += 1
+        out["multipod" if multi_pod else "singlepod"] = n
+    print(f"launch specs: every spec divides on both production meshes "
+          f"({json.dumps(out)} trees of parameters and caches)", flush=True)
+    return out
+
+
+def launch_dry_cell(rec: dict) -> dict:
+    """(a) One production-mesh cell's record, from its own process on
+    ``meta``: ok, in the flops bound, collectives > 0."""
+    label = f"dry-run {rec['arch']} x {rec['shape']} on {rec['mesh_tag']}"
+    check(rec["status"] == "ok",
+          f"{label}: {rec.get('error')}\n{rec.get('where', '')}")
+    label += f" {tuple(rec['mesh'].values())}"
+    ratio = flops_in_bound(rec, label)
+    coll = rec["collective_bytes"]
+    check(coll["total"] > 0, f"{label}: no collective bytes")
+    roof = rec["roofline"]
+    print(f"{label}: {rec['lower_s']:.1f} s counting, {rec['wall_s']:.1f} s "
+          f"in its process; flops/chip "
+          f"{rec['hlo_walk']['flops']:.4g} ({ratio:.3f} x model_flops "
+          f"{roof['model_flops']:.4g} over {rec['chips']} chips), bytes/chip "
+          f"{rec['hlo_walk']['bytes_fused']:.4g}, collective bytes/chip "
+          f"{json.dumps({k: v for k, v in coll.items() if v})}, arguments "
+          f"{rec['memory_analysis']['argument_bytes'] / 2**30:.3f} GiB; on "
+          f"H100 peaks compute {roof['compute_s']:.4g} s, memory "
+          f"{roof['memory_s']:.4g} s, collective {roof['collective_s']:.4g}"
+          f" s, dominant {roof['dominant']}, roofline fraction "
+          f"{roof['roofline_fraction']:.4f}", flush=True)
+    return rec
+
+
+def debug_cell(name: str):
+    """(b)'s config and shape of one cut codeqwen cell."""
+    cut = dict(DEBUG_CUTS[name])
+    cfg = get_arch(LM_ARCH)
+    if "n_layers" in cut:
+        cfg = replace(cfg, n_layers=cut.pop("n_layers"))
+    return cfg, replace(SHAPES[name], **cut)
+
+
+def launch_debug_cell(name: str, mesh) -> dict:
+    """(b) One cut codeqwen cell on the card's 1x1 debug mesh: counted
+    (K4 through its workload hook), then timed after that warm-up."""
+    cfg, shape = debug_cell(name)
+    snap = k4_snapshot()
+    rec = lower_cell(LM_ARCH, name, mesh, verbose=False, cfg=cfg,
+                     shape=shape, seed=LAUNCH_SEED)
+    n_k4, by = k4_since(snap)
+    label = (f"debug mesh {LM_ARCH} x {name} ({cfg.n_layers} layers, "
+             f"batch {shape.global_batch} x {shape.seq})")
+    check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
+    ratio = flops_in_bound(rec, label)
+    hooked = sum(rec["kernel_launches"].values())
+    if shape.kind != "decode":
+        check(n_k4 > 0, f"{label}: K4 was not launched")
+    # the counted run and the timed run launch K4 alike
+    check(n_k4 == 2 * hooked, f"{label}: K4 launched {n_k4} times over two "
+          f"runs, its workload hook counted {hooked} in one")
+    if "loss" in rec:
+        check(math.isfinite(rec["loss"]), f"{label}: loss {rec['loss']}")
+    roof = rec["roofline"]
+    ideal_s = roof["model_flops"] / HW().peak_flops_bf16
+    rec |= {"k4_launches": n_k4, "k4_by_body": {" ".join(k): v
+                                                 for k, v in by.items()},
+            "ideal_s": ideal_s, "flops_ratio": ratio}
+    print(f"{label} on {nvidia_smi()}: counted flops "
+          f"{rec['hlo_walk']['flops']:.4g} ({ratio:.3f} x model_flops "
+          f"{roof['model_flops']:.4g}), bytes "
+          f"{rec['hlo_walk']['bytes_fused']:.4g}"
+          f"; on H100 peaks compute {roof['compute_s']:.4g} s, memory "
+          f"{roof['memory_s']:.4g} s, collective {roof['collective_s']:.4g} "
+          f"s, dominant {roof['dominant']}; step {rec['step_s']:.4f} s "
+          f"(after the counted run), ideal_s {ideal_s:.4g} s = "
+          f"{ideal_s / rec['step_s']:.4f} of the step; peak "
+          f"{rec['peak_bytes'] / 1e9:.2f} GB; K4 {n_k4} launches over the "
+          f"two runs {json.dumps(rec['k4_by_body'])}, {hooked} through its "
+          f"workload hook in the counted run"
+          + (f"; loss {rec['loss']:.4f}" if "loss" in rec else ""),
+          flush=True)
+    free_memory()
+    return rec
+
+
+def start_dry_cells(tmp: Path) -> tuple:
+    """Phase 14 (a)'s cells, each in a process of its own on the host's
+    cores (``meta`` tensors: the card is not touched). They are started
+    before phase 13, so they count while phase 13 and (b) use the card.
+    Returns the pool and the cells' futures."""
+    pool = ThreadPoolExecutor(max_workers=len(DRY_CELLS))
+    return pool, [pool.submit(run_cell_process, arch, name, multi_pod,
+                              tmp / "dryrun")
+                  for arch, name, multi_pod in DRY_CELLS]
+
+
+def phase_launch(tmp: Path, dry_cells: tuple) -> dict:
+    """Phase 14: the multi-device launcher and the roofline. (a) The
+    production meshes on ``meta`` under fake process groups, their cells
+    started by :func:`start_dry_cells`; (b) codeqwen1.5-7b's cells on the
+    card's 1x1 debug mesh, then each counted on ``meta`` under a fake 1x1
+    mesh."""
+    t0 = time.perf_counter()
+    free_memory()
+    pool, dry = dry_cells
+    out = {"specs": launch_specs_check(), "dry": {}, "debug": {}}
+    release()
+    total, by = 0, Counter()
+    with quickstart._env(**{WISDOM_DIR_ENV: str(tmp / "launch-wisdom")}):
+        ops.reload_wisdom()
+        mesh = make_debug_mesh(device="cuda")
+        for name in DEBUG_CUTS:
+            rec = launch_debug_cell(name, mesh)
+            out["debug"][name] = rec
+            total += rec["k4_launches"]
+            by += Counter(rec["k4_by_body"])
+        mesh = make_fake_mesh((1, 1), ("data", "model"))
+        for name, rec in out["debug"].items():
+            cfg, shape = debug_cell(name)
+            meta = lower_cell(LM_ARCH, name, mesh, verbose=False, cfg=cfg,
+                              shape=shape)
+            rec["meta_flops"] = meta["hlo_walk"]["flops"]
+            rec["meta_bytes"] = meta["hlo_walk"]["bytes_fused"]
+            print(f"debug mesh {LM_ARCH} x {name}: flops on the card "
+                  f"{rec['hlo_walk']['flops']:.6g}, on meta "
+                  f"{rec['meta_flops']:.6g} (microbatches by trip count); "
+                  f"bytes {rec['hlo_walk']['bytes_fused']:.6g} and "
+                  f"{rec['meta_bytes']:.6g}; meta counted in "
+                  f"{meta['lower_s']:.1f} s", flush=True)
+        release()
+    ops.reload_wisdom()
+    for future in dry:
+        rec = launch_dry_cell(future.result())
+        out["dry"][f"{rec['arch']} {rec['shape']} {rec['mesh_tag']}"] = rec
+    pool.shutdown()
+    out["launches"] = {"flash_attention": total}
+    out["by_body"] = dict(by)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 (launcher and roofline) took {out['seconds']:.1f}s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3598,7 +3828,17 @@ def main() -> int:
             counts[name] += n
         for key, n in zoo["by_body"].items():
             by["flash_attention"][key] = by["flash_attention"].get(key, 0) + n
+        dry_cells = start_dry_cells(Path(tmp))
         phase_recurrent()
+        launch = phase_launch(Path(tmp), dry_cells)
+        print(f"launch-path launches: {json.dumps(launch['launches'])}; "
+              f"flash_attention by body: {json.dumps(launch['by_body'])}",
+              flush=True)
+        for name, n in launch["launches"].items():
+            check(n > 0, f"{name} was not launched on the launcher's path")
+            counts[name] += n
+        for key, n in launch["by_body"].items():
+            by["flash_attention"][key] = by["flash_attention"].get(key, 0) + n
     kernels = []
     for name in TPU_KERNELS:
         key = ((name, 2048, "bfloat16") if name == "flash_attention"

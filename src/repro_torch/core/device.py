@@ -109,6 +109,10 @@ GPU_H100 = DeviceSpec(
     backend="gpu", matmul_granule=16, vector_ratio=1.0,
     smem_per_block=232_448, regs_per_sm=65_536,
 )
+#: Device memory of the cards the roofline (``roofline.analysis.HW``)
+#: sizes against, by kind.
+HBM_BYTES: dict[str, int] = {"gpu-h100": 80 * 10**9}
+
 CPU_HOST = DeviceSpec(
     kind="cpu", family="cpu",
     flops_bf16=5e11, flops_f32=5e11,

@@ -43,6 +43,12 @@ from .param import Config
 from .scenario import format_key
 from .wisdom import Wisdom
 
+#: Called as ``observe(builder, config, problem, dtype)`` after each launch
+#: of a kernel (CUDA tensors) and for each shape-only stand-in of one
+#: (``meta`` tensors), where no dispatch mode sees the work: the op counter
+#: of ``roofline.op_count`` adds the launch's workload here.
+LAUNCH_OBSERVERS: list = []
+
 
 def online_requested() -> bool:
     """KERNEL_LAUNCHER_ONLINE=1 auto-attaches an online tuner per kernel."""
@@ -184,6 +190,9 @@ class WisdomKernel:
         dtype = self.builder.get_dtype(*meta)
         device = meta[0].device
 
+        if device.type == "meta":
+            return self._stand_in(args, meta, problem, dtype, config)
+
         if capture_requested(self.builder.name):
             write_capture(self.builder.name, problem, dtype, args,
                           extra_meta={"device_kind": self.device_kind,
@@ -222,6 +231,9 @@ class WisdomKernel:
             t0 = time.perf_counter()
             out = fn(*args)
             launch_s = time.perf_counter() - t0
+        if LAUNCH_OBSERVERS and device.type == "cuda":
+            for observe in LAUNCH_OBSERVERS:
+                observe(self.builder, config, problem, dtype)
         self.stats.append(LaunchStats(
             kernel=self.builder.name, cached=cached,
             wisdom_read_s=0.0 if cached else self._wisdom_read_s,
@@ -275,6 +287,18 @@ class WisdomKernel:
             online.after_launch(problem, dtype, config, tier, launch_s,
                                 cold=not cached)
         return out
+
+    def _stand_in(self, args, meta, problem, dtype, config):
+        """A call on ``meta`` tensors (shapes only, as the dry-run counts
+        a step): the selected config's output shape, and nothing launches.
+        The observers hear of it, as the work a launch would do; stats,
+        tier tallies, metrics, trace, profiler and online tuner do not, as
+        there is no launch to time."""
+        if config is None:
+            config, _ = self.select_config(problem, dtype)
+        for observe in LAUNCH_OBSERVERS:
+            observe(self.builder, config, problem, dtype)
+        return self.builder.make(config, meta)(*args)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"WisdomKernel({self.builder.name!r}, "

@@ -187,10 +187,13 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
     """Attention over flattened heads: the CUDA kernel with ``config`` on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors, the output's shape on
+    ``meta`` tensors (nothing launches)."""
     check_args(q, k, v)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref_factory(causal)(q, k, v)
+    if q.device.type == "meta":       # shapes only, as every meta op
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: the kernel runs on CUDA tensors, "
                          f"got a {q.device.type} tensor")

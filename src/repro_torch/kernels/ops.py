@@ -9,6 +9,7 @@ version for CPU tensors.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import WisdomKernel
 
@@ -16,7 +17,7 @@ from . import advec_u as _advec_mod
 from . import diff_uvw as _diff_mod
 from . import flash_attention as _fa_mod
 from . import matmul as _mm_mod
-from . import ref
+from . import ref, sharded
 
 advec_u_kernel = WisdomKernel(_advec_mod.builder)
 diff_uvw_kernel = WisdomKernel(_diff_mod.builder)
@@ -80,13 +81,21 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``ref.attention_ref`` on the tensors' device, as the reference runs its
     oracle for them. The flash call goes through
     ``flash_attention.FlashAttentionFn``: the kernel forward, the plain
-    version's gradient backward."""
+    version's gradient backward.
+
+    On ``DTensor``s (a step under a device mesh) each rank attends its own
+    shards where q, k and v split the batch and heads alike
+    (``kernels.sharded``); otherwise the plain version runs on the
+    ``DTensor``s."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              kv_offset=kv_offset)
+    if isinstance(q, DTensor):
+        out = sharded.local_attention(attention, q, k, v, **kw)
+        return out if out is not None else ref.attention_ref(q, k, v, **kw)
     if q.shape[3] not in _fa_mod.HEAD_DIMS or not flashable(
             q, k, window=window, softcap=softcap, scale=scale,
             kv_offset=kv_offset):
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale,
-                                 kv_offset=kv_offset)
+        return ref.attention_ref(q, k, v, **kw)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     qf = q.reshape(B * Hq, S, D).contiguous()

@@ -19,6 +19,8 @@ import contextlib
 
 import torch
 
+from . import sharded
+
 # --------------------------------------------------------------------------
 # advec_u: 2nd-order flux-form advection with 5th-order interpolation
 # --------------------------------------------------------------------------
@@ -141,7 +143,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None,
 
     ``window`` may be an int or a 0-d tensor (0/None = full).
     ``kv_offset``: absolute position of q[0] minus position of k[0].
-    Long sequences dispatch to the blockwise online-softmax path."""
+    Long sequences dispatch to the blockwise online-softmax path. On
+    ``DTensor``s that split the batch and heads alike, each rank attends
+    its own shards (``kernels.sharded``)."""
+    out = sharded.local_attention(
+        attention_ref, q, k, v, causal=causal, window=window,
+        softcap=softcap, scale=scale, kv_offset=kv_offset)
+    if out is not None:
+        return out
     Sq, Sk = q.shape[2], k.shape[2]
     if Sq >= BLOCKWISE_THRESHOLD and Sk >= BLOCKWISE_THRESHOLD:
         return blockwise_attention_ref(

@@ -22,10 +22,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 from repro_torch.kernels import ref as kref
 
-from .common import apply_rope, dense_init, dt
+from .common import apply_rope, constrain_batch, dense_init, dt
 from .config import ArchConfig
 
 
@@ -55,9 +55,12 @@ def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = constrain_batch(q.reshape(B, S, cfg.n_heads, cfg.d_head),
+                        head_dim=2)
+    k = constrain_batch(k.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
+                        head_dim=2)
+    v = constrain_batch(v.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
+                        head_dim=2)
     if rope and cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
@@ -78,7 +81,7 @@ def _attn_core(cfg: ArchConfig, p: dict, x: torch.Tensor, window,
     else:
         o = _masked_attention(q, k, v, window, causal, cfg.attn_softcap)
     o = o.transpose(1, 2).reshape(B, S, cfg.d_q)
-    out = o @ p["wo"].to(x.dtype)
+    out = constrain_batch(o @ p["wo"].to(x.dtype))
     return out, k, v
 
 
@@ -157,7 +160,16 @@ def _decode_attention(q, cache_k, cache_v, pos: int, window,
     accumulation from bf16 operands with ``preferred_element_type``; here
     the operands are widened, which gives the same exact products.)
     Positions past ``pos`` are masked with weight exactly 0, so the port
-    reads only the written prefix [0, pos] of the cache."""
+    reads only the written prefix [0, pos] of the cache.
+
+    On ``DTensor``s that split the batch and heads alike each rank attends
+    its own shards (``kernels.sharded``); otherwise the ops run on the
+    ``DTensor``s as they are."""
+    if start is None:
+        out = sharded.local_attention(_decode_attention, q, cache_k, cache_v,
+                                      pos=pos, window=window, softcap=softcap)
+        if out is not None:
+            return out
     B, Hq, _, D = q.shape
     Hkv = cache_k.shape[1]
     group = Hq // Hkv

@@ -3,15 +3,17 @@
 
 Parameters are plain nested dicts of tensors. Every init function draws
 from an explicit ``torch.Generator`` (``None`` on the ``meta`` device,
-where nothing is drawn) onto an explicit device. The reference's
-``constrain_batch`` pins sharding on a device mesh; the port runs on one
-device and has no counterpart.
+where nothing is drawn) onto an explicit device. ``constrain_batch``
+pins an activation's sharding on the device mesh of an enclosing
+``repro_torch.launch.mesh.use_mesh`` block, as the reference's does under
+``with mesh:``; outside one it returns its input.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.builder import torch_dtype
@@ -25,6 +27,46 @@ def dt(cfg: ArchConfig) -> torch.dtype:
 
 def cdt(cfg: ArchConfig) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
+
+
+# ------------------------------------------------------------ sharding ----
+
+#: The ``torch.distributed`` device mesh of the enclosing
+#: ``launch.mesh.use_mesh`` block (the reference's ``with mesh:``), or None.
+ACTIVE_MESH = None
+
+
+def _active_mesh():
+    return ACTIVE_MESH
+
+
+def constrain_batch(x: torch.Tensor, head_dim: int | None = None
+                    ) -> torch.Tensor:
+    """Pin the leading (batch) dim of a ``DTensor`` to the data axes of the
+    active mesh, keeping the head axis model-sharded where it divides
+    evenly (the reference's rule and reasons: a head-split reshape whose
+    model sharding does not align to head boundaries would otherwise
+    replicate the activation). The tensor is redistributed to that
+    placement, collectives included.
+
+    Returns ``x`` itself, at once, outside a mesh or for a plain tensor:
+    one attribute read, no torch op and no host sync on the serving
+    path."""
+    mesh = _active_mesh()
+    if mesh is None or not isinstance(x, DTensor) or x.ndim == 0:
+        return x
+    from repro_torch.launch.mesh import dp_axes, dp_size, mesh_axis
+    from repro_torch.launch.sharding import to_placements
+
+    dp = dp_axes(mesh)
+    size = dp_size(mesh)
+    if not dp or size == 1 or x.shape[0] % size:
+        return x
+    entries: list = [dp] + [None] * (x.ndim - 1)
+    if head_dim is not None and "model" in mesh.mesh_dim_names \
+            and x.shape[head_dim] % mesh_axis(mesh, "model") == 0:
+        entries[head_dim] = "model"
+    return x.redistribute(mesh, to_placements(tuple(entries), mesh))
 
 
 # ---------------------------------------------------------------- init ----
@@ -166,7 +208,16 @@ def _ce_chunk(xc, head, yc, mc, final_softcap, vocab_ok):
     if vocab_ok is not None:
         logits = torch.where(vocab_ok, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # A gather along the sharded vocab dim leaves a masked partial
+        # that DTensor cannot reduce after the squeeze (torch 2.13): take
+        # the gold logit as a one-hot sum, exact (every other term is 0),
+        # whose sharding is a plain partial sum.
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(yc.long()[..., None] == vocab, logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
     return ((logz - gold) * mc).sum()
 
 

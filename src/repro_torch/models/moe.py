@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from .common import dense_init, dt
@@ -103,6 +104,32 @@ def route(cfg: ArchConfig, p: dict, xc: torch.Tensor):
     return logits, probs, gate, sel
 
 
+def _experts(xe, w_in, w_gate, w_out):
+    """The routed experts' gated MLPs on their buckets xe (B, E, cap, D)."""
+    cd = xe.dtype
+    h = torch.einsum("begd,edf->begf", xe, w_in.to(cd))
+    g = torch.einsum("begd,edf->begf", xe, w_gate.to(cd))
+    return torch.einsum("begf,efd->begd", F.silu(g) * h, w_out.to(cd))
+
+
+def _sharded_experts(xe, w_in, w_gate, w_out):
+    """:func:`_experts` on ``DTensor``s, each rank running its own experts
+    on its own batch rows: expert parallelism on the mesh dims that split
+    the weights' expert axis, the weights gathered over their FSDP split
+    (the scheme gathers every weight a layer), the buckets keeping their
+    batch split elsewhere. The products run on local shards, as DTensor's
+    einsum on torch 2.11 mislays a local layout between the three."""
+    mesh = xe.device_mesh
+    expert = [isinstance(pw, Shard) and pw.dim == 0 for pw in w_in.placements]
+    w_place = tuple(Shard(0) if e else Replicate() for e in expert)
+    x_place = tuple(Shard(1) if e else (px if px == Shard(0) else Replicate())
+                    for e, px in zip(expert, xe.placements))
+    ws = [t.redistribute(mesh, w_place).to_local()
+          for t in (w_in, w_gate, w_out)]
+    out = _experts(xe.redistribute(mesh, x_place).to_local(), *ws)
+    return DTensor.from_local(out, mesh, x_place, run_check=False)
+
+
 def _moe_chunk(cfg: ArchConfig, p: dict, xc: torch.Tensor, cap: int):
     """One seq chunk: xc (B, C, D)."""
     e = cfg.moe
@@ -137,9 +164,8 @@ def _moe_chunk(cfg: ArchConfig, p: dict, xc: torch.Tensor, cap: int):
 
     cd = xc.dtype
     xe = torch.einsum("bceg,bcd->begd", dispatch.to(cd), xc)  # (B,E,cap,D)
-    h = torch.einsum("begd,edf->begf", xe, p["w_in"].to(cd))
-    g = torch.einsum("begd,edf->begf", xe, p["w_gate"].to(cd))
-    oe = torch.einsum("begf,efd->begd", F.silu(g) * h,
-                      p["w_out"].to(cd))                     # (B,E,cap,D)
+    w = [p[k] for k in ("w_in", "w_gate", "w_out")]
+    oe = (_sharded_experts(xe, *w) if isinstance(xe, DTensor)
+          else _experts(xe, *w))                             # (B,E,cap,D)
     yc = torch.einsum("bceg,begd->bcd", combine.to(cd), oe)
     return yc, load_balance, z_loss

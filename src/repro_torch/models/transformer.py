@@ -75,8 +75,8 @@ from . import mla as ML
 from . import moe as MO
 from . import rwkv as R
 from .common import (apply_mlp, apply_norm, cdt, chunked_ce_loss,
-                     dense_init, dt, embed_init, init_generator, init_mlp,
-                     init_norm, lm_head)
+                     constrain_batch, dense_init, dt, embed_init,
+                     init_generator, init_mlp, init_norm, lm_head)
 from .config import ArchConfig, FULL_WINDOW
 
 Params = dict
@@ -201,7 +201,7 @@ class DecoderLM:
         x = p["embed"][tokens.long()].to(cdt(self.cfg))
         if self.cfg.pos == "learned":
             x = x + p["pos_embed"][pos:pos + tokens.shape[1]].to(x.dtype)
-        return x
+        return constrain_batch(x)
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         return lm_head(self.cfg, p, x)

@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.trip_count import loop
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import leaves, unflatten
 
@@ -50,7 +51,9 @@ def make_train_step(model, optimizer: AdamW,
     ticked once before each step below ``online_warmup_steps``. The batch
     moves to the model's device; its leading axis splits into
     ``microbatches`` consecutive slices, and the metrics are the last
-    one's, as the reference's scan leaves them."""
+    one's, as the reference's scan leaves them. The microbatch loop is
+    ``core.trip_count.loop``: a dry-run's counter on ``meta`` tensors may
+    run one microbatch and count it ``microbatches`` times."""
     if online is None:
         online = []
     elif not isinstance(online, (list, tuple)):
@@ -59,7 +62,9 @@ def make_train_step(model, optimizer: AdamW,
     def grad_fn(params, mb):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss, metrics = model.loss(unflatten(params, flat), mb)
-        grads = torch.autograd.grad(loss, flat)
+        # a leaf the loss never reads (whisper's cross-attention gates)
+        # gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def accumulate(params, batch):
@@ -67,9 +72,9 @@ def make_train_step(model, optimizer: AdamW,
             grads, metrics = grad_fn(params, batch)
             return unflatten(params, grads), metrics
         n = next(iter(batch.values())).shape[0] // microbatches
-        acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+        acc = [torch.zeros_like(p, dtype=accum_dtype)
                for p in leaves(params)]
-        for i in range(microbatches):
+        for i in loop(microbatches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             grads, metrics = grad_fn(params, mb)
             for a, g in zip(acc, grads):

@@ -12,6 +12,7 @@ checked on the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 from __future__ import annotations
 
 import subprocess
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -252,8 +253,10 @@ def test_ops_attention_at_head_dims_the_kernel_does_not_take(rng, causal,
 
 
 def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
-    """A tensor on the meta device, standing in for one on a card, gets
-    the kernel or an error, never the plain version."""
+    """A tensor that is not on the CPU never gets the plain version. On
+    the meta device (shapes only, as the dry-run counts a step) the launch
+    gives the output's shape and launches nothing; any other device but
+    the card's raises."""
     def refuse(*a, **k):
         raise AssertionError("the plain version ran for a non-CPU tensor")
 
@@ -262,10 +265,22 @@ def test_non_cpu_tensor_never_reaches_the_plain_version(monkeypatch):
     args = [torch.zeros(4, 128, 128, device="meta"),
             torch.zeros(2, 128, 128, device="meta"),
             torch.zeros(2, 128, 128, device="meta")]
+    before = flash_attention.kernel.launches
     for b in (flash_attention.causal_builder, flash_attention.full_builder):
         fn = b.make(b.default_config(), args_meta(*args))
+        out = fn(*args)
+        assert out.device.type == "meta" and out.shape == args[0].shape
+    assert flash_attention.kernel.launches == before
+    # a device neither the host's, the card's nor meta: the launch raises
+    # (a stand-in, as this build of torch makes no such tensor)
+    monkeypatch.setattr(flash_attention, "check_args", lambda *a: None)
+    other = SimpleNamespace(device=torch.device("xpu"))
+    for causal in (True, False):
         with pytest.raises(ValueError, match="CUDA tensors"):
-            fn(*args)
+            flash_attention.launch(flash_attention.causal_builder
+                                   .default_config(), other, other, other,
+                                   causal=causal)
+    assert flash_attention.kernel.launches == before
 
 
 def test_cpu_launch_never_invokes_the_builder(monkeypatch):

@@ -1162,3 +1162,60 @@ def test_recurrent_stacks_on_card_match_the_host(cuda_device, arch, upd,
     assert fa.launches == n0
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_debug_mesh_prefill_adds_k4_workload_per_launch(cuda_device,
+                                                        empty_wisdom):
+    """A reduced codeqwen (2 layers, d_head 128, bf16) prefill of 2 x 256
+    tokens on the card's 1x1 debug mesh, through the dry-run: K4 launches
+    once a layer in each of its two runs (counted, then timed), and the
+    counted run adds K4's workload flops for each launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.shapes import SHAPES
+
+    cfg = get_arch("codeqwen1.5-7b").reduced(
+        n_layers=2, n_heads=2, n_kv_heads=2, d_head=128, d_model=256,
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq=256,
+                                global_batch=2)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    n0 = fa.launches
+    try:
+        mesh = mesh_mod.make_debug_mesh(device="cuda")
+        rec = lower_cell("codeqwen1.5-7b", "prefill_32k", mesh,
+                         verbose=False, cfg=cfg, shape=shape)
+    finally:
+        mesh_mod.release()
+    assert rec["status"] == "ok" and rec["device"] == "cuda"
+    assert rec["kernel_launches"] == {"flash_attention_causal": 2}
+    assert fa.launches - n0 == 4
+    b = flash_attention.causal_builder
+    w = b.make_workload(b.default_config(), (2 * 2, 2 * 2, 256, 128),
+                        "bfloat16")
+    assert rec["hlo_walk"]["flops"] >= 2 * w.flops
+    assert rec["step_s"] > 0 and rec["peak_bytes"] > 0
+
+
+def test_constrain_batch_without_a_mesh_returns_its_input_on_card(
+        cuda_device):
+    """No mesh active: ``constrain_batch`` hands back the very tensor and
+    runs nothing on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import common
+
+    x = torch.randn(4, 64, 8, 128, device=cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        y = common.constrain_batch(x, head_dim=2)
+        z = common.constrain_batch(x)
+        torch.cuda.synchronize()
+    assert y is x and z is x
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if n.startswith("aten::")], names
+    assert all(e.device_time_total == 0 for e in prof.key_averages())

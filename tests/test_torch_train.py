@@ -286,6 +286,36 @@ def test_train_step_matches_repro(name):
                         2 * peak + 1e-6, rel=False)
 
 
+def test_train_step_gives_unread_leaves_zero_gradients_as_repro():
+    """whisper-base's decoder never reads its cross blocks' ``gate`` (its
+    cross-attention is ungated), so ``jax.grad`` gives them zero and the
+    reference's step leaves them at 0; the port's step does the same (it
+    raised on them before) and its loss is the reference's."""
+    rcfg = repro_arch("whisper-base").reduced()
+    cfg = get_arch("whisper-base").reduced()
+    rmodel = repro_build(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(2))
+    model = build_model(cfg, device="cpu")
+    params = params_from_jax(cfg, _np_tree(rparams))
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 16), np.int32)
+             for k in ("tokens", "labels")}
+    batch["frames"] = rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    ropt, opt = RefAdamW(), AdamW()
+    rstate = {"params": rparams, "opt": ropt.init(rparams),
+              "step": jnp.zeros((), jnp.int32)}
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    rstate, rm = jax.jit(repro_make_step(rmodel, ropt))(rstate, batch)
+    state, m = make_train_step(model, opt)(state, batch)
+    assert abs(float(m["loss"]) - float(rm["loss"])) <= \
+        STEP_LOSS_RTOL * abs(float(rm["loss"]))
+    assert not np.asarray(rstate["params"]["decoder"]["cross"]["gate"]).any()
+    assert all(float(blk["cross"]["gate"]) == 0.0
+               for blk in state["params"]["decoder"])
+
+
 def test_microbatching_matches_full_batch():
     """The reference's test, in the port: one batch of 8 in one piece or
     in 4 microbatches gives the same update."""
