@@ -21,7 +21,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    8/1, causal and full, S 256, 512 and a ragged 200, D 128, in four
    configs (bfloat16 runs two in the wgmma body and two in the mma body;
    each line names them), and at the LM slice's prefill shape BH 128 x
-   S 2048 x D 128 in bfloat16 in three configs, both bodies;
+   S 2048 x D 128 in bfloat16 in three configs, both bodies; then K4 at
+   D 384 and 512 (the mma body with the output's head dim split across
+   warps), both dtypes, causal and full, GQA 8/2, S 256 and 200, in the
+   config a default launch runs there, through ``ops.attention`` with its
+   launches counted, and timed at BH 16 x S 2048 causal beside the plain
+   version and SDPA (its backend printed);
 3. the quickstart loop: matmul (512, 512, 1024) float32, capture ->
    wall-clock tune (bayes, 20 evaluations) -> relaunch in tier "exact",
    equal to the first launch;
@@ -196,7 +201,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    attention in {0, 15, 31}, SWA 1024 elsewhere) and rwkv6-7b (32
    layers): prefill 4 x 2048 (a warm-up and two timed runs; rwkv's wkv
    loop is host-bound, and its one run is timed), 32 greedy decode steps,
-   profiler windows of one prefill and one decode step (busy share, five
+   profiler windows of one prefill of 4 x 512 (REC_PROFILE_SEQ) and one
+   decode step (busy share against a timed prefill of that length, five
    largest kernels), peak memory, ``ServeEngine(mode="auto")`` picking
    cohort mode for 8 requests on 4 slots; whisper-base (6 + 6 layers):
    ``encode`` of frames (4, 1500, 512), prefill 4 x 256, 32 decode
@@ -256,7 +262,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import gc
 import json
 import math
 import os
@@ -338,8 +343,9 @@ from repro_torch.sandbox.demo import (EXPECTED_VERDICTS,  # noqa: E402
                                       run_fault_modes)
 from repro_torch.runtime import InjectedFault, TrainDriver  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
-from repro_torch.train import (init_train_state,  # noqa: E402
-                               make_train_step, move_batch)
+from repro_torch.train import (import_dynamo_off_stack,  # noqa: E402
+                               init_train_state, make_train_step,
+                               move_batch)
 from repro_torch.transfer import (fraction_of_optimum,  # noqa: E402
                                   holdout_report, transfer_scenario)
 from repro_torch.transfer.cli import main as transfer_cli  # noqa: E402
@@ -439,6 +445,14 @@ FA_GQA = [(4, 4), (4, 2), (8, 1)]
 #: 200: a ragged S that no block divides (the TMA edge and the key mask).
 FA_SEQ = (256, 512, 200)
 FA_HEAD_DIM = 128
+#: K4's head dims above 256 (the mma body splits O's head dim across
+#: warps): checked at GQA 8/2 (a group of 4), S 256 and a ragged 200,
+#: causal and full, in both dtypes, in the config a default launch runs
+#: there (``flash_attention.fit_config``), and timed causal at
+#: FA_WIDE_TIMED = (BH, BHkv, S) beside the plain version and SDPA.
+FA_WIDE_DIMS = (384, 512)
+FA_WIDE_SEQ = (256, 200)
+FA_WIDE_TIMED = (16, 16, 2048)
 TPU_KERNELS = {   # CUDA kernel -> the Pallas call it replaces
     "advec_u": "src/repro/kernels/advec_u.py:91",
     "diff_uvw_fused": "src/repro/kernels/diff_uvw.py:111",
@@ -709,7 +723,7 @@ def phase_build() -> None:
         src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
         specs += [(src, stencil_defines(c)) for c in stencil_configs(name)]
     specs += matmul_specs()
-    specs += flash_specs()
+    specs += flash_specs() + flash_wide_specs()
     specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
     secs = _build.build_many(specs)
     print(f"built {len(specs)} libraries with nvcc -gencode "
@@ -738,6 +752,24 @@ def flash_specs() -> list:
         name = "flash_attention_causal" if causal else "flash_attention_full"
         out += [flash_defines(kernel_cfg(name, u), causal, dtype)
                 for u in FA_CONFIGS for dtype in DTYPES]
+    return [("flash_attention.cu", d) for d in out]
+
+
+def wide_cfg(name: str, d: int, dtype: str) -> dict:
+    """The config a default launch of ``name`` runs at head dim ``d``."""
+    return flash_attention.fit_config(kernel_cfg(name, {}), d, dtype)
+
+
+def flash_wide_specs() -> list:
+    """The flash libraries :func:`phase_wide_flash` launches."""
+    out = []
+    for d in FA_WIDE_DIMS:
+        for dtype in DTYPES:
+            for name in ("flash_attention_causal", "flash_attention_full"):
+                cfg = wide_cfg(name, d, dtype)
+                out.append(flash_attention.defines(
+                    cfg, name == "flash_attention_causal", d,
+                    flash_attention.choose_body(dtype, d, cfg)))
     return [("flash_attention.cu", d) for d in out]
 
 
@@ -878,6 +910,90 @@ def phase_kernels() -> dict:
     del args
     torch.cuda.empty_cache()
     return headline
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` serves a causal call
+    on (BH, S, D) operands with."""
+    try:
+        choice = torch._fused_sdp_choice(q[None], k[None], v[None],
+                                         is_causal=True)
+        return torch.nn.attention.SDPBackend(choice).name
+    except Exception as e:  # noqa: BLE001  (a private function)
+        return f"unknown ({type(e).__name__}: {e})"
+
+
+def phase_wide_flash() -> dict:
+    """K4 at D 384 and 512 (phase 2's last part): each (D, dtype) held
+    against its plain version at FA_WIDE_SEQ, causal and full, GQA 8/2;
+    then ``ops.attention``, the entry every attention layer calls, on
+    (2, 8, 256, D) queries against 2 kv heads, causal and full, with the
+    launch counts zeroed just before and read just after (each call must
+    launch K4); then K4 timed at FA_WIDE_TIMED, causal, against its plain
+    version and SDPA. Returns {(D, dtype): row}."""
+    t0 = time.perf_counter()
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="kl-wide-") as wdir, \
+            quickstart._env(**{WISDOM_DIR_ENV: wdir}):
+        ops.reload_wisdom()
+        for d in FA_WIDE_DIMS:
+            for dtype in DTYPES:
+                errs = []
+                for name in ("flash_attention_causal",
+                             "flash_attention_full"):
+                    cfg = wide_cfg(name, d, dtype)
+                    for s in FA_WIDE_SEQ:
+                        errs.append(compare(name, cfg, qkv(8, 2, s, d, dtype),
+                                            dtype, f"gqa8/2 s{s} d{d}",
+                                            verbose=False))
+                g = torch.Generator(device="cuda").manual_seed(1)
+                q, k, v = (torch.randn((2, h, 256, d), generator=g,
+                                       device="cuda").to(DTYPES[dtype])
+                           for h in (8, 2, 2))
+                _build.reset_launch_counts()
+                for causal in (True, False):
+                    got = ops.attention(q, k, v, causal=causal)
+                    want = ref.attention_ref(q, k, v, causal=causal)
+                    out = verify_outcome(got, want, dtype)
+                    check(out.ok, f"ops.attention D {d} {dtype} causal="
+                          f"{causal}: {out.error}")
+                launches = fa.launches
+                by = dict(fa.body_launches)
+                check(launches == 2 and by == {"mma": 2},
+                      f"ops.attention at D {d} {dtype}: {launches} K4 "
+                      f"launches {by}, want 2 in the mma body")
+                cfg = wide_cfg("flash_attention_causal", d, dtype)
+                bh, bhkv, s = FA_WIDE_TIMED
+                args = qkv(bh, bhkv, s, d, dtype)
+                err = compare("flash_attention_causal", cfg, args, dtype,
+                              f"BH{bh} S{s} D{d}", verbose=False)
+                kernel, plain = calls("flash_attention_causal", cfg, args)
+                row = {"head_dim": d, "dtype": dtype, "config": cfg,
+                       "launches": launches,
+                       "max_abs_err": err["max_abs_err"],
+                       "ms": time_ms(kernel),
+                       "plain_ms": time_ms(plain, reps=3),
+                       "library_ms": time_ms(lambda: sdpa_call(*args)),
+                       "sdpa_backend": sdpa_backend(*args)}
+                row["bound_ms"], row["bound_by"] = bound(
+                    "flash_attention_causal", (bh, bhkv, s, d), dtype, cfg)
+                print(f"check flash_attention D {d} {dtype:8s} "
+                      f"{len(errs)} cases (GQA 8/2 x S 256, 200, causal "
+                      f"and full) max_abs_err="
+                      f"{max(e['max_abs_err'] for e in errs):.3e} "
+                      f"{tolerance(dtype)} row_l2_err="
+                      f"{max(e['row_l2_err'] for e in errs):.3e} ok; "
+                      f"ops.attention launched K4 {launches} times "
+                      f"({json.dumps(by)})", flush=True)
+                print("time wide " + json.dumps(row), flush=True)
+                rows[(d, dtype)] = row
+                del args, q, k, v
+        ops.reload_wisdom()
+    torch.cuda.empty_cache()
+    print(f"phase 2 (K4 at D 384 and 512) took "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return rows
 
 
 def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
@@ -2764,6 +2880,9 @@ ZOO_BATCH, ZOO_SEQ, ZOO_DECODE = 4, 2048, 32
 #: deepseek-v2-236b at full width, cut in depth to its dense MLA layer 0
 #: and 2 MoE+MLA layers: 60 layers would need 472 GB in bfloat16.
 ZOO_MLA_LAYERS, ZOO_MLA_BATCH, ZOO_MLA_DECODE = 3, 2, 16
+#: The most memory phase 12 may find allocated: phase 11's train state
+#: (12.2 GB) must be freed by reference counts alone.
+ZOO_START_MAX_GB = 4.0
 #: The consistency checks: prefill of this many tokens, then 2 decode
 #: steps, against forward over the S + 2 tokens.
 ZOO_CHECK_SEQ = 512
@@ -3258,10 +3377,10 @@ def zoo_path_launches(cfg, snap: tuple, prefills: int, n_flash: int
 
 
 def free_memory() -> None:
-    """Collect reference cycles, then return the freed blocks to the
-    card: phase 11 leaves its train state in a cycle that only the
-    cycle collector frees."""
-    gc.collect()
+    """Return the blocks that dropped tensors freed to the card. Reference
+    counts alone free a dropped train state
+    (``test_a_dropped_train_state_is_freed_without_the_cycle_collector``),
+    so no cycle collection runs here."""
     torch.cuda.empty_cache()
 
 
@@ -3269,12 +3388,13 @@ def phase_zoo(tmp: Path) -> dict:
     """Phase 12: the zoo's attention families on the card, one model at a
     time, from an empty wisdom directory (K4 in its default config)."""
     t0 = time.perf_counter()
-    before = torch.cuda.memory_allocated()
     free_memory()
-    print(f"phase 12 (the zoo) starts with "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
-          f"({before / 1e9:.2f} GB before the cycle collector ran)",
-          flush=True)
+    held = torch.cuda.memory_allocated()
+    print(f"phase 12 (the zoo) starts with {held / 1e9:.2f} GB allocated "
+          f"(no cycle collection since phase 11)", flush=True)
+    check(held < ZOO_START_MAX_GB * 1e9,
+          f"{held / 1e9:.2f} GB still allocated after phase 11 dropped its "
+          f"train state (a reference cycle?)")
     out = {}
     total, by = 0, Counter()
     with quickstart._env(**{WISDOM_DIR_ENV: str(tmp / "zoo-wisdom")}):
@@ -3316,6 +3436,12 @@ REC_F32_WINDOWS = (0, 128)
 REC_PREFILL_RUNS = {REC_HYMBA: 3, REC_RWKV: 1, REC_WHISPER: 3}
 #: Each model's weight seed (its recurrent constants: the seed + 1).
 REC_SEEDS = {REC_HYMBA: 50, REC_RWKV: 60, REC_WHISPER: 70}
+#: Most tokens a sequence of the profiled prefill: the profiler traces
+#: every kernel, and hymba's scan passes and rwkv's token loop launch
+#: their kernels in proportion to S, so a quarter of the timed prefill's
+#: 2048 shows the same split in a quarter of the time (the busy share is
+#: read against a timed prefill of the same length).
+REC_PROFILE_SEQ = 512
 
 
 def redraw_recurrent(params, seed: int) -> None:
@@ -3493,10 +3619,13 @@ def rec_run(name: str, seed: int, serve: bool) -> dict:
     state = {"cache": cache,
              "nxt": logits[:, -1].argmax(-1, keepdim=True)}
     del cache
+    sp = min(S, REC_PROFILE_SEQ)
     prof = device_profile(lambda: model.prefill(
-        params, tok, model.init_cache(B, S + 1), **ex),
-        f"rec {name} prefill {B} x {S}", top=5,
+        params, tok[:, :sp], model.init_cache(B, sp + 1), **ex),
+        f"rec {name} prefill {B} x {sp}", top=5,
         host_ops=cfg.mixer != "rwkv")
+    _, sec_p = timed(lambda: model.prefill(
+        params, tok[:, :sp], model.init_cache(B, sp + 1), **ex))
     prof_dec = device_profile(lambda: model.decode_step(
         params, state["cache"], state["nxt"]), f"rec {name} decode batch {B}",
         top=5)
@@ -3507,7 +3636,8 @@ def rec_run(name: str, seed: int, serve: bool) -> dict:
             "prefill_tok_s": tok.numel() / (ms / 1e3),
             "decode_ms_per_step": dec_ms,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "prefill_busy_share": prof["device_ms_per_step"] / ms,
+            "profile_shape": [B, sp],
+            "prefill_busy_share": prof["device_ms_per_step"] / (sec_p * 1e3),
             "decode_busy_share": prof_dec["device_ms_per_step"] / dec_ms,
             "profile_prefill": prof, "profile_decode": prof_dec}
     if serve:
@@ -3529,7 +3659,7 @@ def rec_run(name: str, seed: int, serve: bool) -> dict:
           f"{[round(x * 1e3, 1) for x in secs]} ms (timed: "
           f"{ms:.1f} ms, {out['prefill_tok_s']:.0f} tokens/s); decode "
           f"{dec_ms:.2f} ms/step at batch {B}; device busy "
-          f"{out['prefill_busy_share']:.0%} of a prefill, "
+          f"{out['prefill_busy_share']:.0%} of a prefill of {B} x {sp}, "
           f"{out['decode_busy_share']:.0%} of a decode step; top prefill "
           f"kernels {json.dumps(prof['top'])}; peak {out['peak_gb']:.2f} GB"
           + (f"; served {sv['requests_completed']} requests in "
@@ -3769,9 +3899,13 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE float32 products
     t0 = time.perf_counter()
+    # torch's lazy import of torch._dynamo pins the frames that trigger it
+    # (train/step.py): trigger it here, off every phase's stack
+    import_dynamo_off_stack()
     phase_environment()
     phase_build()
     headline = phase_kernels()
+    wide = phase_wide_flash()
     print(f"[{time.perf_counter() - t0:.0f}s] kernels agree with their "
           f"plain versions", flush=True)
     with tempfile.TemporaryDirectory(prefix="kl-smoke-") as tmp:
@@ -3852,6 +3986,16 @@ def main() -> int:
             "max_abs_err": headline[name], "ms": row["tuned_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for (d, dtype), row in wide.items():
+        kernels.append({
+            "name": f"flash_attention_d{d}_{dtype}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": TPU_KERNELS["flash_attention"],
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
         })
     print(f"[{time.perf_counter() - t0:.0f}s] done", flush=True)
     print(nvidia_smi())   # name, power limit: as nvidia-smi prints them

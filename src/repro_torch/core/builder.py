@@ -92,6 +92,7 @@ class KernelBuilder:
         self._problem_size: Callable[..., tuple[int, ...]] | None = None
         self._workload: Callable[[Config, tuple, str], Workload] | None = None
         self._probe: Callable[[tuple[int, ...], str], Sequence] | None = None
+        self._fit: Callable[[Config, tuple, str], Config] | None = None
 
     # -- space construction (chainable, like the C++ API) --------------------
 
@@ -130,6 +131,14 @@ class KernelBuilder:
         """fn(problem, dtype) -> concrete CPU argument tensors for the
         scenario (use :func:`probe_array` with a fixed seed)."""
         self._probe = fn
+        return fn
+
+    def fit(self, fn: Callable[[Config, tuple, str], Config]):
+        """fn(config, problem, dtype) -> the config a selected ``config``
+        launches as on this scenario (a tile the device cannot hold at this
+        problem gives way to one it can). Selection applies it; a forced
+        config is launched as given."""
+        self._fit = fn
         return fn
 
     # -- accessors ------------------------------------------------------------
@@ -174,6 +183,13 @@ class KernelBuilder:
 
     def default_config(self) -> Config:
         return self.space.default_config()
+
+    def fit_config(self, config: Config, problem: tuple[int, ...],
+                   dtype: str) -> Config:
+        """The :meth:`fit` hook's config, or ``config`` without one."""
+        if self._fit is None:
+            return config
+        return self._fit(dict(config), tuple(problem), dtype)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"KernelBuilder({self.name!r}, space={self.space!r})"

@@ -649,6 +649,61 @@ class Wisdom:
                       outcome=outcome).inc()
         return result
 
+    def select_record_linear(self, device_kind: str,
+                             problem_size: Sequence[int], dtype: str,
+                             min_transfer_confidence: float | None = None
+                             ) -> tuple["WisdomRecord | None", str]:
+        """The O(n) linear-scan §4.5 selection, the reference's, kept as
+        the oracle of the indexed :meth:`select_record`:
+        ``tests/test_torch_wisdom_index_props.py`` asserts both return the
+        same (record_id, tier), and the reference's scan too, for
+        arbitrary record sets. Not for production use: it re-filters every
+        record per call."""
+        problem = tuple(int(x) for x in problem_size)
+        family = get_device(device_kind).family
+        threshold = (TRANSFER_MIN_CONFIDENCE
+                     if min_transfer_confidence is None
+                     else float(min_transfer_confidence))
+        measured = [r for r in self.records if not r.is_transferred()]
+        transferred = [r for r in self.records
+                       if r.is_transferred()
+                       and r.device_kind == device_kind
+                       and r.dtype == dtype
+                       and r.transfer_confidence() >= threshold]
+
+        def best(cands: list[WisdomRecord]) -> WisdomRecord | None:
+            if not cands:
+                return None
+            return min(cands, key=lambda r: (_distance(r.problem_size,
+                                                       problem),
+                                             r.score_us, r.record_id()))
+
+        tiers: list[tuple[str, list[WisdomRecord]]] = []
+        exact = [r for r in measured
+                 if r.device_kind == device_kind
+                 and r.problem_size == problem and r.dtype == dtype]
+        tiers.append((T_EXACT, exact))
+        tiers.append((T_TRANSFER, transferred))
+        same_dev = [r for r in measured
+                    if r.device_kind == device_kind and r.dtype == dtype]
+        tiers.append((T_DEVICE_DTYPE, same_dev))
+        same_dev_any = [r for r in measured if r.device_kind == device_kind]
+        tiers.append((T_DEVICE, same_dev_any))
+        fam = [r for r in measured
+               if r.device_family == family and r.dtype == dtype]
+        tiers.append((T_FAMILY_DTYPE, fam))
+        fam_any = [r for r in measured if r.device_family == family]
+        tiers.append((T_FAMILY, fam_any))
+        any_dtype = [r for r in measured if r.dtype == dtype]
+        tiers.append((T_ANY_DTYPE, any_dtype))
+        tiers.append((T_ANY, measured))
+
+        for tier_name, cands in tiers:
+            rec = best(cands)
+            if rec is not None:
+                return rec, tier_name
+        return None, T_DEFAULT
+
     def __len__(self) -> int:
         return len(self.records)
 

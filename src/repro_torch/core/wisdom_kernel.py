@@ -154,8 +154,9 @@ class WisdomKernel:
             return self._selection_cache[key]
         wisdom = self._load_wisdom()
         rec, tier = wisdom.select_record(self.device_kind, problem, dtype)
-        cfg = (dict(rec.config) if rec is not None
-               else self.builder.default_config())
+        cfg = self.builder.fit_config(
+            dict(rec.config) if rec is not None
+            else self.builder.default_config(), problem, dtype)
         # Exact-tier wisdom scores are this scenario's drift baseline:
         # the latency the config was tuned at. Fuzzy/transferred
         # matches came from a different scenario, so no baseline.

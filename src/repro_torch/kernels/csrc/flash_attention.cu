@@ -31,6 +31,16 @@
 //    softmax state (m, l) and output accumulator in registers (bf16) or
 //    thread-private arrays (f32). All threads copy each k/v tile through
 //    registers between two __syncthreads, so no copy overlaps arithmetic.
+//  * mma body at D = 384 and 512: a warp's 16 or 32 rows of O over all of
+//    D would take 192 or 256 f32 registers a thread (bf16, 16 rows), over
+//    the 255 a thread may have. So the block launches NSPLIT = D / 128
+//    warps for each row group of the config (THREADS * NSPLIT threads):
+//    each owns one 128-wide slice of the head dimension of O and its part
+//    of the P.V product. Every warp of a row group computes the group's
+//    whole S = Q K^T and softmax itself, the same instructions on the same
+//    shared-memory tiles, so their P, m and l agree bit for bit with no
+//    exchange; the price is NSPLIT times the Q.K^T work. Shared memory is
+//    the D <= 256 layout's.
 //  * mma body, bf16: both products run on the tensor cores through
 //    mma.sync m16n8k16
 //    (bf16 inputs, f32 accumulators); scores are kept in the log2 domain
@@ -86,7 +96,8 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(D == 128 || D == 256, "head dim 128 or 256");
+static_assert(D == 128 || D == 256 || D == 384 || D == 512,
+              "head dim 128, 256, 384 or 512");
 
 __device__ __forceinline__ int q_tile() {
 #if CAUSAL
@@ -364,13 +375,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh,
 #else
 // ============================================================= mma body
 
-constexpr int WARPS = THREADS / 32;
+constexpr int WARPS = THREADS / 32;   // row groups
 constexpr int RW = BLOCK_Q / WARPS;   // query rows per warp
 constexpr int MT = RW / 16;           // m16 tiles per warp (bf16 path)
+// Warps per row group, each owning DS head dims of O (D > 256 only).
+constexpr int NSPLIT = D > 256 ? D / 128 : 1;
+constexpr int DS = D / NSPLIT;
+constexpr int NT = THREADS * NSPLIT;  // threads a block launches
 
 static_assert(THREADS % 32 == 0 && BLOCK_Q % WARPS == 0, "whole warps");
 static_assert(RW == 16 || RW == 32, "16 or 32 query rows per warp");
 static_assert(BLOCK_K % 32 == 0, "key tiles of whole warps");
+static_assert(NT <= 1024, "at most 1024 threads a block");
 
 constexpr int BF_STRIDE = D + 8;   // bf16 elements per shared-memory row
 constexpr int F_STRIDE = D + 1;    // f32 words per shared-memory row
@@ -399,7 +415,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int rows, int s) {
   constexpr int VPR = D / 8;   // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * VPR; i += NT) {
     const int r = i / VPR, c = i % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < s)
@@ -436,7 +452,7 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
       : "r"(addr));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(NT)
     fa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
@@ -453,12 +469,13 @@ __global__ void __launch_bounds__(THREADS)
   const size_t kv_off = static_cast<size_t>(bh / group) * s * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;   // fragment row group, column pair
-  const int w0 = warp * RW;                // the warp's first row in the tile
+  const int w0 = warp % WARPS * RW;        // the warp's first row in the tile
+  const int d0 = warp / WARPS * DS;        // its first head dim of O
   const float sl2 = scale * LOG2E;
 
   load_tile(qs, q + q_off, q0, BLOCK_Q, s);
 
-  float acc[MT][D / 8][4];
+  float acc[MT][DS / 8][4];
   float m[MT][2], l[MT][2];   // rows g and g + 8 of each m tile
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -468,7 +485,7 @@ __global__ void __launch_bounds__(THREADS)
       l[mt][h] = 0.0f;
     }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < DS / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.0f;
   }
@@ -550,7 +567,7 @@ __global__ void __launch_bounds__(THREADS)
         l[mt][h] = alpha * l[mt][h] + rs;
         m[mt][h] = mx;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
+        for (int dt = 0; dt < DS / 8; ++dt) {
           acc[mt][dt][2 * h] *= alpha;
           acc[mt][dt][2 * h + 1] *= alpha;
         }
@@ -570,10 +587,10 @@ __global__ void __launch_bounds__(THREADS)
         a[mt][3] = pack_bf16(sc[mt][2 * kb + 1][2], sc[mt][2 * kb + 1][3]);
       }
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
+      for (int dt = 0; dt < DS / 8; ++dt) {
         uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1,
-                          vs + (kb * 16 + (lane & 15)) * BF_STRIDE + dt * 8);
+        ldmatrix_x2_trans(
+            b0, b1, vs + (kb * 16 + (lane & 15)) * BF_STRIDE + d0 + dt * 8);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma(acc[mt][dt], a[mt], b0, b1);
       }
@@ -587,9 +604,10 @@ __global__ void __launch_bounds__(THREADS)
       const int row = q0 + w0 + mt * 16 + g + 8 * h;
       if (row >= s) continue;
       const float inv = 1.0f / fmaxf(l[mt][h], 1e-30f);
-      __nv_bfloat16* orow = o + q_off + static_cast<size_t>(row) * D + 2 * t;
+      __nv_bfloat16* orow =
+          o + q_off + static_cast<size_t>(row) * D + d0 + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
+      for (int dt = 0; dt < DS / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
             __floats2bfloat162_rn(acc[mt][dt][2 * h] * inv,
                                   acc[mt][dt][2 * h + 1] * inv);
@@ -600,19 +618,19 @@ __global__ void __launch_bounds__(THREADS)
 
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int rows, int s) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * D; i += NT) {
     const int r = i / D, c = i % D;
     dst[r * F_STRIDE + c] =
         r0 + r < s ? __ldg(src + static_cast<size_t>(r0 + r) * D + c) : 0.0f;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(NT)
     fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int s,
                   int group, float scale) {
   constexpr int CPL = BLOCK_K / 32;   // keys per lane
-  constexpr int DPL = D / 32;         // head dims per lane
+  constexpr int DPL = DS / 32;        // head dims of O per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = qs + BLOCK_Q * F_STRIDE;
@@ -623,7 +641,8 @@ __global__ void __launch_bounds__(THREADS)
   const size_t q_off = static_cast<size_t>(bh) * s * D;
   const size_t kv_off = static_cast<size_t>(bh / group) * s * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int w0 = warp * RW;
+  const int w0 = warp % WARPS * RW;
+  const int d0 = warp / WARPS * DS;
 
   load_tile(qs, q + q_off, q0, BLOCK_Q, s);
 
@@ -678,7 +697,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int c = 0; c < BLOCK_K; ++c) {
         const float p = __shfl_sync(FULL, sc[c / 32], c % 32);
-        const float* vr = vs + c * F_STRIDE + lane;
+        const float* vr = vs + c * F_STRIDE + d0 + lane;
 #pragma unroll
         for (int j = 0; j < DPL; ++j) a[j] = fmaf(p, vr[32 * j], a[j]);
       }
@@ -691,7 +710,7 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + w0 + r;
     if (row >= s) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = o + q_off + static_cast<size_t>(row) * D + lane;
+    float* orow = o + q_off + static_cast<size_t>(row) * D + d0 + lane;
     for (int j = 0; j < DPL; ++j) orow[32 * j] = acc[r][j] / denom;
   }
 }
@@ -710,7 +729,7 @@ int launch(void (*kern)(const T*, const T*, const T*, T*, int, int, float),
     return static_cast<int>(err);
   }
   const dim3 grid((s + BLOCK_Q - 1) / BLOCK_Q, bh);
-  kern<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s, bh / bhkv,
       1.0f / sqrtf(static_cast<float>(D)));

@@ -20,9 +20,14 @@ refuses configs that need more shared memory than a block may have
 each dtype selects (:func:`card_refusal`), and two m16 tiles per warp with
 128-key tiles, whose accumulators would not fit in registers. The head
 dimension is compiled in (``-DHEAD_DIM``), so a config is built once per D
-it meets; D is 128 or 256 (:data:`HEAD_DIMS`). On CPU tensors the plain
-version (``ref.flash_attention_ref_factory``) runs; on CUDA tensors the
-kernel, or an error.
+it meets; D is 128, 256, 384 or 512 (:data:`HEAD_DIMS`). At D 384 and
+512 the ``mma`` body launches ``D / 128`` warps for each row group of the
+config, each owning a 128-wide slice of the output (:func:`launch_threads`),
+and a selected config the card refuses at the launch's D and dtype (a
+record tuned at D 128 serving a fallback tier, or the default in float32)
+gives way to :data:`FIT_CONFIGS` (:func:`fit_config`). On CPU tensors the
+plain version (``ref.flash_attention_ref_factory``) runs; on CUDA tensors
+the kernel, or an error.
 
 One source, two bodies, chosen by :func:`choose_body` from the launch's
 dtype, D and config — never by trying one and falling back; a build
@@ -67,9 +72,16 @@ def kernel_of(config) -> CudaKernel:
     return kernel
 
 #: Head dims the kernel takes, and the card's tests check: 128 (the LM
-#: slice's) and 256. ``ops.flashable`` routes any multiple of 128, so a
-#: larger one raises on the card rather than run untested.
-HEAD_DIMS = (128, 256)
+#: slice's), 256, 384 and 512. ``ops.flashable`` admits any multiple of
+#: 128; ``ops.attention`` sends a larger one to the plain version.
+HEAD_DIMS = (128, 256, 384, 512)
+#: Most threads a block may have.
+_MAX_THREADS = 1024
+#: The config a launch runs when the card refuses the selected one at the
+#: launch's head dim, by dtype: each fits at every D of :data:`HEAD_DIMS`
+#: in the ``mma`` body and lies in the space.
+FIT_CONFIGS = {"bfloat16": {"block_q": 64, "block_k": 64, "threads": 128},
+               "float32": {"block_q": 32, "block_k": 32, "threads": 64}}
 #: The head dim the space's shared-memory restriction is checked at.
 SPACE_HEAD_DIM = 128
 #: Grid extent CUDA allows on the y axis, where the flattened heads go.
@@ -110,6 +122,15 @@ def smem_bytes(config, body: str, head_dim: int, dtype: str) -> int:
     return rows * (head_dim + 1) * 4
 
 
+def launch_threads(config, body: str, head_dim: int) -> int:
+    """Threads a block launches: ``threads``, or in the ``mma`` body at
+    D > 256 ``threads * D / 128`` (one warp a row group and 128-wide
+    slice of the output)."""
+    if body == "mma" and head_dim > 256:
+        return config["threads"] * (head_dim // 128)
+    return config["threads"]
+
+
 def card_refusal(config, body: str, head_dim: int, dtype: str) -> str:
     """Why the H100 would refuse ``config`` in ``body``, or ``""``."""
     smem = smem_bytes(config, body, head_dim, dtype)
@@ -117,7 +138,24 @@ def card_refusal(config, body: str, head_dim: int, dtype: str) -> str:
         return (f"{body} body needs {smem} bytes of shared memory at D = "
                 f"{head_dim} in {dtype}, above the "
                 f"{GPU_H100.smem_per_block} a block may have")
+    threads = launch_threads(config, body, head_dim)
+    if threads > _MAX_THREADS:
+        return (f"{body} body launches {threads} threads a block at D = "
+                f"{head_dim}, above the {_MAX_THREADS} a block may have")
     return ""
+
+
+def fit_config(config, head_dim: int, dtype: str):
+    """``config``, or :data:`FIT_CONFIGS`'s for ``dtype`` where the card
+    would refuse ``config`` at ``head_dim``: the selection hook, so a
+    config chosen for another scenario (or the default, whose float32
+    tiles overflow shared memory above D 256) never reaches a launch it
+    cannot make. A config the caller forces is launched as it is."""
+    if dtype not in FIT_CONFIGS or head_dim not in HEAD_DIMS or \
+            not card_refusal(config, choose_body(dtype, head_dim, config),
+                             head_dim, dtype):
+        return config
+    return dict(FIT_CONFIGS[dtype])
 
 
 def fits_card(config) -> bool:
@@ -289,6 +327,10 @@ def _make_builder(causal: bool) -> KernelBuilder:
         return run
 
     b.reference(_ref.flash_attention_ref_factory(causal))
+
+    @b.fit
+    def _fit(config, problem, dtype):
+        return fit_config(config, problem[3], dtype)
 
     @b.workload
     def _workload(config, problem, dtype):

@@ -19,6 +19,8 @@ import contextlib
 
 import torch
 
+from repro_torch.core.trip_count import scan
+
 from . import sharded
 
 # --------------------------------------------------------------------------
@@ -216,39 +218,65 @@ def blockwise_attention_ref(q, k, v, *, causal: bool = True, window=None,
     with an online softmax, O(Sq·k_chunk) live memory instead of O(Sq·Sk).
     Same math as :func:`_naive_attention_ref` up to fp reassociation. The
     reference pads the last chunks and masks the padded keys; slicing them
-    off instead leaves every sum the same."""
+    off instead leaves every sum the same.
+
+    Every (q chunk, k chunk) pair runs, the causally masked ones too, so
+    where the chunks divide the sequences each pair costs the same, and
+    both loops are ``core.trip_count.scan``s: a counter folding loops (on
+    ``meta``) counts the forward and backward of every pair from three.
+    On real tensors every pair runs."""
     B, Hq, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     k, v = _repeat_kv(q, k, v)
     qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
-    outs = []
-    for q0 in range(0, Sq, qc):
+
+    def k_step(j, carry, qi, qp, k, v):
+        m, l, acc = carry
+        k0 = j * kc
+        ki = k[:, :, k0:k0 + kc].to(torch.float32)
+        vi = v[:, :, k0:k0 + kc].to(torch.float32)
+        kp = torch.arange(k0, k0 + ki.shape[2], device=q.device)[None, :]
+        s = _scores(qi, ki, scale, softcap)
+        mask = _mask(qp, kp, causal, window)[None, None]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        # explicit zero for masked entries: in a fully-masked chunk
+        # s == m_new == -1e30 and exp(s - m_new) would be 1, not 0
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        with ieee_f32():
+            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vi)
+        return (m_new, l, acc), None
+
+    def q_step(i, carry, q, k, v):
+        q0 = i * qc
         qi = q[:, :, q0:q0 + qc].to(torch.float32)
         n = qi.shape[2]
         qp = torch.arange(q0, q0 + n, device=q.device)[:, None] + kv_offset
         m = torch.full((B, Hq, n, 1), NEG_INF, device=q.device)
         l = torch.zeros((B, Hq, n, 1), device=q.device)
         acc = torch.zeros((B, Hq, n, Dv), device=q.device)
-        for k0 in range(0, Sk, kc):
-            ki = k[:, :, k0:k0 + kc].to(torch.float32)
-            vi = v[:, :, k0:k0 + kc].to(torch.float32)
-            kp = torch.arange(k0, k0 + ki.shape[2], device=q.device)[None, :]
-            s = _scores(qi, ki, scale, softcap)
-            mask = _mask(qp, kp, causal, window)[None, None]
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            # explicit zero for masked entries: in a fully-masked chunk
-            # s == m_new == -1e30 and exp(s - m_new) would be 1, not 0
-            p = torch.where(mask, torch.exp(s - m_new), 0.0)
-            alpha = torch.exp(m - m_new)
-            l = alpha * l + p.sum(-1, keepdim=True)
-            with ieee_f32():
-                acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vi)
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30))
-    return torch.cat(outs, dim=2).to(q.dtype)
+        (m, l, acc), _ = _chunks(Sk, kc, k_step, (m, l, acc), (qi, qp, k, v))
+        return carry, acc / torch.clamp(l, min=1e-30)
+
+    _, out = _chunks(Sq, qc, q_step, (), (q, k, v), dim=2)
+    return out.to(q.dtype)
+
+
+def _chunks(total: int, chunk: int, step, carry, xs, dim: int = 0):
+    """``step`` over the ``chunk``-long pieces of ``total``: a
+    ``trip_count.scan`` where they are whole (each costs the same), else
+    every piece in turn, the last one shorter."""
+    if total % chunk == 0:
+        return scan(total // chunk, step, carry, xs, dim=dim)
+    outs = []
+    for i in range(-(-total // chunk)):
+        carry, out = step(i, carry, *xs)
+        outs.append(out)
+    return carry, None if outs[0] is None else torch.cat(outs, dim)
 
 
 def flash_attention_ref_factory(causal: bool):

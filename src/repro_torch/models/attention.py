@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import ops, sharded
 from repro_torch.kernels import ref as kref
 
-from .common import apply_rope, constrain_batch, dense_init, dt
+from .common import apply_rope, constrain_batch, dense_init, dt, split_heads
 from .config import ArchConfig
 
 
@@ -47,7 +47,6 @@ def init_attn(generator, cfg: ArchConfig, device) -> dict:
 
 def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor,
          positions: torch.Tensor, rope: bool = True):
-    B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -55,12 +54,9 @@ def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = constrain_batch(q.reshape(B, S, cfg.n_heads, cfg.d_head),
-                        head_dim=2)
-    k = constrain_batch(k.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
-                        head_dim=2)
-    v = constrain_batch(v.reshape(B, S, cfg.n_kv_heads, cfg.d_head),
-                        head_dim=2)
+    q = split_heads(q, cfg.n_heads, cfg.d_head)
+    k = split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = split_heads(v, cfg.n_kv_heads, cfg.d_head)
     if rope and cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
@@ -164,12 +160,14 @@ def _decode_attention(q, cache_k, cache_v, pos: int, window,
 
     On ``DTensor``s that split the batch and heads alike each rank attends
     its own shards (``kernels.sharded``); otherwise the ops run on the
-    ``DTensor``s as they are."""
+    ``DTensor``s, q's heads first gathered where the cache does not split
+    its heads as q does (``sharded.gather_heads``)."""
     if start is None:
         out = sharded.local_attention(_decode_attention, q, cache_k, cache_v,
                                       pos=pos, window=window, softcap=softcap)
         if out is not None:
             return out
+    q = sharded.gather_heads(q, cache_k)
     B, Hq, _, D = q.shape
     Hkv = cache_k.shape[1]
     group = Hq // Hkv
@@ -218,11 +216,10 @@ def init_cross_attn(generator, cfg: ArchConfig, device) -> dict:
 def cross_kv(cfg: ArchConfig, p: dict, memory: torch.Tensor):
     """Precompute cross-attention K/V (B, Hkv, M, D) from image memory
     (B, M, D)."""
-    B, M, _ = memory.shape
     k = memory @ p["wk"].to(memory.dtype)
     v = memory @ p["wv"].to(memory.dtype)
-    k = k.reshape(B, M, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = v.reshape(B, M, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    k = split_heads(k, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    v = split_heads(v, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     return k, v
 
 
@@ -232,8 +229,11 @@ def cross_attn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor,
     """x: (B, S, D) queries; k/v: (B, Hkv, M, D) precomputed memory."""
     B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    o = kref.attention_ref(q, k, v, causal=False)
+    q = split_heads(q, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    o = sharded.local_attention(kref.attention_ref, q, k, v, causal=False)
+    if o is None:
+        o = kref.attention_ref(sharded.gather_heads(q, k), k, v,
+                               causal=False)
     o = o.transpose(1, 2).reshape(B, S, cfg.d_q)
     out = o @ p["wo"].to(x.dtype)
     if gated:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.builder import torch_dtype
@@ -67,6 +67,56 @@ def constrain_batch(x: torch.Tensor, head_dim: int | None = None
             and x.shape[head_dim] % mesh_axis(mesh, "model") == 0:
         entries[head_dim] = "model"
     return x.redistribute(mesh, to_placements(tuple(entries), mesh))
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with the sums it owes done: a ``DTensor`` left partial by a
+    contraction over a sharded dim is all-reduced there (to a replica),
+    the reduction the reference's partitioner inserts before such a
+    product meets a sharded parameter. Anything else is returned as it
+    is, at once."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; on a ``DTensor`` under the active mesh, through an
+    identity whose backward brings the gradient to ``x``'s own placements.
+    A parameter read twice (a tied embedding: the lookup and the head) gets
+    two gradients in two placements, which autograd adds; ``DTensor``
+    cannot always plan that sum (a shard to a partial), where the
+    reference's partitioner gives every gradient its parameter's
+    sharding. Outside a mesh, or on a plain tensor, returned at once."""
+    if _active_mesh() is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
+def split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
+    """(B, S, n_heads * d_head) -> (B, S, n_heads, d_head), pinned by
+    ``constrain_batch(..., head_dim=2)``.
+
+    On a ``DTensor`` under the active mesh whose last dim is sharded on a
+    mesh dim that does not divide ``n_heads`` (8 heads over 16 ranks), that
+    dim is first gathered (replicated there): a shard boundary inside a
+    head cannot be split into heads shard by shard. This is the resharding
+    the reference's partitioner inserts at its head-split reshape, where
+    ``constrain_batch`` after it asks for the heads replicated on that
+    axis; every other placement is left to ``constrain_batch``, as there.
+    Outside a mesh, or on a plain tensor, it is the view alone: no torch
+    op besides it and no host sync."""
+    if _active_mesh() is not None and isinstance(x, DTensor):
+        mesh, last = x.device_mesh, x.ndim - 1
+        pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                   and n_heads % mesh.size(i) else p
+                   for i, p in enumerate(x.placements))
+        if pl != tuple(x.placements):
+            x = x.redistribute(mesh, pl)
+    return constrain_batch(x.reshape(*x.shape[:-1], n_heads, d_head),
+                           head_dim=2)
 
 
 # ---------------------------------------------------------------- init ----

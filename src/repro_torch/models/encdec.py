@@ -26,8 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from .common import (apply_mlp, apply_norm, cdt, chunked_ce_loss,
-                     dense_init, dt, embed_init, init_generator, init_mlp,
-                     init_norm, lm_head)
+                     constrain_batch, dense_init, dt, embed_init,
+                     init_generator, init_mlp, init_norm, lm_head, pin_grad)
 from .config import ArchConfig
 from .transformer import AUX_KEYS
 
@@ -112,9 +112,11 @@ class EncDecLM:
 
     def _dec_embed(self, p: Params, tokens: torch.Tensor, pos0: int = 0
                    ) -> torch.Tensor:
-        x = p["embed"][tokens.long()].to(cdt(self.cfg))
+        embed = pin_grad(p["embed"]) if self.cfg.tie_embeddings \
+            else p["embed"]
+        x = embed[tokens.long()].to(cdt(self.cfg))
         pe = p["dec_pos"][pos0:pos0 + tokens.shape[1]]
-        return x + pe.to(x.dtype)
+        return constrain_batch(x + pe.to(x.dtype))
 
     def _head(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         return lm_head(self.cfg, p, x)

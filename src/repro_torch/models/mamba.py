@@ -5,9 +5,12 @@ Prefill runs the selective scan chunk by chunk: inside a chunk of
 ``MAMBA_CHUNK`` tokens (halved while it does not divide S) a log-depth
 (Hillis-Steele) scan over the chunk axis, in place of the reference's
 ``lax.associative_scan``; across chunks a Python loop carries the f32
-state (B, d_inner, d_state). Decode is one recurrence step with the state
-held in the serve cache. The short causal depthwise conv is a sum of
-shifted views (no conv primitive), as in the reference.
+state (B, d_inner, d_state); the chunks are a ``core.trip_count.scan``,
+which a counter on ``meta`` folds. Decode is one recurrence step with the
+state held in the serve cache. The short causal depthwise conv is a sum
+of shifted views (no conv primitive), as in the reference. Shifts pad with
+a ``torch.cat`` of a zero (or one) slice, which ``DTensor`` plans where it
+cannot plan ``F.pad``; the values are the same.
 
 The reference computes all of this in jnp, outside any Pallas kernel, so
 the port's is plain PyTorch on the tensors' device.
@@ -17,9 +20,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from .common import dense_init, dt
+from repro_torch.core.trip_count import scan
+
+from .common import dense_init, dt, reduce_partial
 from .config import ArchConfig
 
 
@@ -58,7 +64,8 @@ def _conv(p, xp, prev_window=None):
     if prev_window is not None:
         xp_full = torch.cat([prev_window.to(xp.dtype), xp], dim=1)
     else:
-        xp_full = F.pad(xp, (0, 0, d_conv - 1, 0))
+        zeros = torch.zeros_like(xp[:, :1]).expand(-1, d_conv - 1, -1)
+        xp_full = torch.cat([zeros, xp], dim=1)
     S = xp.shape[1]
     out = sum(xp_full[:, i:i + S, :] * w[d_conv - 1 - i]
               for i in range(d_conv))
@@ -69,7 +76,7 @@ def _ssm_inputs(cfg, p, xc):
     """Per-token B, C (B, S, N) and the dt logit (B, S, 1), shared across
     channels, upcast to float32 from one product."""
     m = cfg.mamba
-    bcdt = xc @ p["w_bcdt"].to(xc.dtype)
+    bcdt = reduce_partial(xc @ p["w_bcdt"].to(xc.dtype))
     B_t = bcdt[..., :m.d_state].to(torch.float32)
     C_t = bcdt[..., m.d_state:2 * m.d_state].to(torch.float32)
     dt_t = bcdt[..., -1:].to(torch.float32)
@@ -110,8 +117,8 @@ def _scan_chunk(h0, xq, bq, cq, dtq, A):
     d = 1
     while d < q:
         # positions t < d combine with the identity (1, 0)
-        a_prev = F.pad(a[:, :-d], (0, 0, 0, 0, d, 0), value=1.0)
-        b_prev = F.pad(b[:, :-d], (0, 0, 0, 0, d, 0))
+        a_prev = torch.cat([torch.ones_like(a[:, :d]), a[:, :-d]], dim=1)
+        b_prev = torch.cat([torch.zeros_like(b[:, :d]), b[:, :-d]], dim=1)
         b = torch.addcmul(b, a, b_prev)
         a = a * a_prev
         d *= 2
@@ -132,16 +139,25 @@ def _chunked_selective_scan(xc32, B_t, C_t, dt_ch, A, d_state: int):
                     device=xc32.device)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (xc32, B_t, C_t, dt_ch, A))
-    ys = []
-    for s0 in range(0, S, q):
-        sl = slice(s0, s0 + q)
-        args = (h, xc32[:, sl], B_t[:, sl], C_t[:, sl], dt_ch[:, sl], A)
+    def step(c, carry, A, xq, bq, cq, dtq):
+        args = (carry[0], xq, bq, cq, dtq, A)
         if grad:
             h, y = checkpoint(_scan_chunk, *args, use_reentrant=False)
         else:
             h, y = _scan_chunk(*args)
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+        return (h,), y
+
+    (h,), y = scan(S // q, step, (h,), (A,), (xc32, B_t, C_t, dt_ch), dim=1)
+    return y, h
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus``; on a ``DTensor`` the same values from ops whose
+    gradients ``DTensor`` shards (it has no rule for softplus or its
+    gradient in torch 2.11)."""
+    if not isinstance(x, DTensor):
+        return F.softplus(x)
+    return torch.where(x > 20, x, torch.log1p(torch.exp(x.clamp(max=20))))
 
 
 def _mamba_core(cfg: ArchConfig, p: dict, x: torch.Tensor):
@@ -152,7 +168,7 @@ def _mamba_core(cfg: ArchConfig, p: dict, x: torch.Tensor):
     B_t, C_t, dt_t = _ssm_inputs(cfg, p, xc)
     A = -torch.exp(p["A_log"].to(torch.float32))             # (di, N)
     # per-channel dt via learned bias: (B, S, di)
-    dt_ch = F.softplus(dt_t + p["dt_bias"].to(torch.float32))
+    dt_ch = _softplus(dt_t + p["dt_bias"].to(torch.float32))
     xc32 = xc.to(torch.float32)
     y, h_final = _chunked_selective_scan(xc32, B_t, C_t, dt_ch, A,
                                          m.d_state)
@@ -185,7 +201,7 @@ def mamba_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, ssm_state,
     xc = _conv(p, xp, prev_window=conv_win)                  # (B,1,di)
     new_win = torch.cat([conv_win[:, 1:], xp.to(conv_win.dtype)], dim=1)
     B_t, C_t, dt_t = _ssm_inputs(cfg, p, xc)
-    dt_ch = F.softplus(dt_t + p["dt_bias"].to(torch.float32))
+    dt_ch = _softplus(dt_t + p["dt_bias"].to(torch.float32))
     A = -torch.exp(p["A_log"].to(torch.float32))
     xt = xc[:, 0].to(torch.float32)
     bt, ct, dtt = B_t[:, 0], C_t[:, 0], dt_ch[:, 0]

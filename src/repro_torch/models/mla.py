@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import ref as kref
 
-from .common import apply_rope, constrain_batch, dense_init, dt
+from .common import apply_rope, dense_init, dt, split_heads
 from .config import ArchConfig
 
 #: Cache positions that decode casts to float32 at a time.
@@ -62,10 +62,9 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _queries(cfg: ArchConfig, p: dict, x: torch.Tensor,
              positions: torch.Tensor):
     m = cfg.mla
-    B, S, _ = x.shape
     cq = _rms(x @ p["wq_a"].to(x.dtype), p["q_norm"]["scale"])
-    q = constrain_batch((cq @ p["wq_b"].to(x.dtype)).reshape(
-        B, S, cfg.n_heads, m.d_nope + m.d_rope), head_dim=2)
+    q = split_heads(cq @ p["wq_b"].to(x.dtype), cfg.n_heads,
+                    m.d_nope + m.d_rope)
     q_nope, q_pe = q[..., :m.d_nope], q[..., m.d_nope:]
     q_pe = apply_rope(q_pe, positions, 1.0, cfg.rope_theta)
     return q_nope, q_pe
@@ -87,11 +86,8 @@ def _mla_core(cfg: ArchConfig, p: dict, x: torch.Tensor):
     positions = torch.arange(S, device=x.device)
     q_nope, q_pe = _queries(cfg, p, x, positions)     # (B,S,h,*)
     c_kv, k_pe = _latents(cfg, p, x, positions)
-    k_nope = constrain_batch(
-        (c_kv @ p["wk_b"].to(x.dtype)).reshape(B, S, h, m.d_nope),
-        head_dim=2)
-    v = constrain_batch(
-        (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, h, m.d_v), head_dim=2)
+    k_nope = split_heads(c_kv @ p["wk_b"].to(x.dtype), h, m.d_nope)
+    v = split_heads(c_kv @ p["wv_b"].to(x.dtype), h, m.d_v)
 
     # Fold (nope ++ rope) into one head dim; the shared rope key
     # broadcasts across heads.

@@ -5,12 +5,18 @@ carries only (state, previous token).
 
 The reference scans the wkv recurrence over the sequence with
 ``lax.scan``; the port runs it as a Python loop over S on the f32 state
-(B, H, hd, hd), two device operations a token (a ``bmm`` and an
-``addcmul``): the bonus term ``r_t . (u * k_t) v_t`` is computed for
-every token before the loop (it reads no state), and each chunk of
-``WKV_CHUNK`` tokens forms its outer products ``k_t v_t^T`` in one
-operation. The reference computes all of this in jnp, outside any Pallas
-kernel, so the port's is plain PyTorch on the tensors' device.
+(B, H, hd, hd), two device operations a token (a ``bmm`` over the
+flattened (B*H) state and an ``addcmul``): the bonus term ``r_t . (u *
+k_t) v_t`` is computed for every token before the loop (it reads no
+state), and each chunk of ``WKV_CHUNK`` tokens forms its outer products
+``k_t v_t^T`` in one operation. On ``DTensor``s that split the batch and
+the heads (on two mesh dims, which a (B*H) flatten of the ``DTensor``
+could not join) the recurrence runs on each rank's shards
+(``kernels.sharded.per_shard``), as the reference's partitioner splits
+its scan; the chunks are a ``core.trip_count.scan``, which a counter on
+``meta`` folds.
+The reference computes all of this in jnp, outside any Pallas kernel, so
+the port's is plain PyTorch on the tensors' device.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, dt
+from repro_torch.core.trip_count import scan
+from repro_torch.kernels import sharded
+
+from .common import dense_init, dt, reduce_partial, split_heads
 from .config import ArchConfig
 
 #: Tokens whose k v^T outer products are formed together in the wkv loop.
@@ -65,7 +74,8 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None = None
            ) -> torch.Tensor:
     """Previous-token view of x: (B, S, D). prev: (B, D) carried context."""
     if prev is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        # a zero first row, as F.pad (which DTensor cannot plan) gives it
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     return torch.cat([prev[:, None, :], x[:, :-1]], dim=1)
 
 
@@ -75,8 +85,8 @@ def _mix(x, xx, mu):
 
 def _decay(cfg: ArchConfig, p: dict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent per-channel decay in (0, 1): w = exp(-exp(...))."""
-    lora = torch.tanh(xw @ p["decay_a"].to(xw.dtype)) \
-        @ p["decay_b"].to(xw.dtype)
+    lora = reduce_partial(torch.tanh(xw @ p["decay_a"].to(xw.dtype))
+                          @ p["decay_b"].to(xw.dtype))
     logit = p["decay_base"].to(torch.float32) + lora.to(torch.float32)
     return torch.exp(-torch.exp(logit))
 
@@ -104,8 +114,15 @@ def _rkvwg(cfg, p, x, xx):
 
 
 def _wkv_step(u, h, r_t, k_t, v_t, w_t):
-    """h: (B, H, hd, hd) state [k-dim, v-dim]; r/k/v/w_t: (B, H, hd).
-    Returns (new state, y (B, H, hd))."""
+    """h: (B, H, hd, hd) state [k-dim, v-dim]; u: (1, H, hd); r/k/v/w_t:
+    (B, H, hd). Returns (new state, y (B, H, hd))."""
+    out = sharded.per_shard(_wkv_step_local, (u, h, r_t, k_t, v_t, w_t),
+                            ((None, 1),) + ((0, 1),) * 5, ((0, 1), (0, 1)))
+    return out if out is not None else _wkv_step_local(u, h, r_t, k_t, v_t,
+                                                       w_t)
+
+
+def _wkv_step_local(u, h, r_t, k_t, v_t, w_t):
     kv = k_t[..., :, None] * v_t[..., None, :]           # (B,H,hd,hd)
     y = torch.einsum("bhk,bhkv->bhv", r_t, h + u[..., :, None] * kv)
     h = w_t[..., :, None] * h + kv
@@ -113,29 +130,60 @@ def _wkv_step(u, h, r_t, k_t, v_t, w_t):
 
 
 def _wkv_scan(u, r, k, v, w):
+    """The wkv recurrence over S tokens from a zero state; u: (H, hd);
+    r/k/v/w: (B, S, H, hd) f32; per shard on ``DTensor``s (see
+    :func:`_wkv_scan_local`)."""
+    out = sharded.per_shard(_wkv_scan_local, (u, r, k, v, w),
+                            ((None, 0),) + ((0, 2),) * 4, ((0, 1), (0, 2)))
+    return out if out is not None else _wkv_scan_local(u, r, k, v, w)
+
+
+def _wkv_scan_local(u, r, k, v, w):
     """The wkv recurrence over S tokens from a zero state; r/k/v/w:
     (B, S, H, hd) f32. y_t = r_t (h_{t-1} + diag(u) k_t v_t^T), h_t =
-    diag(w_t) h_{t-1} + k_t v_t^T. The loop keeps the state as (B*H, hd,
-    hd) so each token is one ``bmm`` and one ``addcmul``. Returns (h_S
-    (B, H, hd, hd), y (B, S, H, hd))."""
+    diag(w_t) h_{t-1} + k_t v_t^T. Each token is one ``bmm`` and one
+    ``addcmul`` (:func:`_wkv_chunk`). The whole chunks are a
+    ``trip_count.scan``: a folding counter runs the first and counts it
+    for all, forward and backward. Returns (h_S (B, H, hd, hd), y (B, S,
+    H, hd))."""
     B, S, H, hd = r.shape
     bonus = (r * u * k).sum(-1, keepdim=True) * v         # (B,S,H,hd)
+    # sequence-major views (S, B, H, hd)
+    r, k, v, w = (a.transpose(0, 1) for a in (r, k, v, w))
+    h = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
 
-    def seq_major(a):                                     # (S, B*H, hd)
-        return a.transpose(0, 1).reshape(S, B * H, hd)
+    def step(c, carry, r, k, v, w):
+        h, y = _wkv_chunk(carry[0], r, k, v, w)
+        return (h,), y
 
-    r, k, v, w = (seq_major(a) for a in (r, k, v, w))
-    h = torch.zeros((B * H, hd, hd), dtype=torch.float32, device=r.device)
+    n, tail = divmod(S, WKV_CHUNK)
+    seqs = (r, k, v, w) if not tail else tuple(
+        a[:n * WKV_CHUNK] for a in (r, k, v, w))
+    (h,), y = scan(n, step, (h,), seqs=seqs)
+    ys = [] if y is None else [y]
+    if tail:
+        h, y = _wkv_chunk(h, *(a[n * WKV_CHUNK:] for a in (r, k, v, w)))
+        ys.append(y)
+    y = torch.cat(ys)[..., 0, :].transpose(0, 1)          # (B, S, H, hd)
+    return h, y + bonus
+
+
+def _wkv_chunk(h, r, k, v, w):
+    """The recurrence over a chunk of sequence-major r/k/v/w (c, B, H,
+    hd) from the state h (B, H, hd, hd): (h after it, y (c, B, H, 1,
+    hd)). A chunk runs on plain tensors (``per_shard`` gives it a rank's
+    shards), so it flattens (B, H) to keep each token at one ``bmm`` and
+    one ``addcmul``."""
+    c, B, H, hd = r.shape
+    r, k, v, w = (a.reshape(c, B * H, hd) for a in (r, k, v, w))
+    h = h.reshape(B * H, hd, hd)
     ys = []
-    for s0 in range(0, S, WKV_CHUNK):
-        sl = slice(s0, s0 + WKV_CHUNK)
-        kv = (k[sl, :, :, None] * v[sl, :, None, :]).unbind(0)
-        for r_t, kv_t, w_t in zip(r[sl, :, None, :].unbind(0), kv,
-                                  w[sl, :, :, None].unbind(0)):
-            ys.append(torch.bmm(r_t, h))                  # (B*H, 1, hd)
-            h = torch.addcmul(kv_t, w_t, h)
-    y = torch.stack(ys).reshape(S, B, H, hd).transpose(0, 1)
-    return h.reshape(B, H, hd, hd), y + bonus
+    kv = (k[:, :, :, None] * v[:, :, None, :]).unbind(0)
+    for r_t, kv_t, w_t in zip(r[:, :, None, :].unbind(0), kv,
+                              w[:, :, :, None].unbind(0)):
+        ys.append(torch.bmm(r_t, h))                      # (B*H, 1, hd)
+        h = torch.addcmul(kv_t, w_t, h)
+    return h.reshape(B, H, hd, hd), torch.stack(ys).reshape(c, B, H, 1, hd)
 
 
 def rwkv_time_mix(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -156,7 +204,7 @@ def _time_mix_core(cfg: ArchConfig, p: dict, x: torch.Tensor):
     r, k, v, w, g = _rkvwg(cfg, p, x, xx)
 
     def to_h(a):
-        return a.to(torch.float32).reshape(B, S, H, hd)
+        return split_heads(a.to(torch.float32), H, hd)
 
     u = p["bonus"].to(torch.float32).reshape(H, hd)
     h_final, y = _wkv_scan(u, to_h(r), to_h(k), to_h(v), to_h(w))
@@ -208,7 +256,7 @@ def rwkv_time_mix_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     r, k, v, w, g = _rkvwg(cfg, p, x, xx)
 
     def to_h(a):
-        return a[:, 0].to(torch.float32).reshape(B, H, hd)
+        return split_heads(a.to(torch.float32), H, hd)[:, 0]
 
     u = p["bonus"].to(torch.float32).reshape(H, hd)[None]
     h, y = _wkv_step(u, wkv_state, to_h(r), to_h(k), to_h(v), to_h(w))

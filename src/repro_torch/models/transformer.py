@@ -76,7 +76,8 @@ from . import moe as MO
 from . import rwkv as R
 from .common import (apply_mlp, apply_norm, cdt, chunked_ce_loss,
                      constrain_batch, dense_init, dt, embed_init,
-                     init_generator, init_mlp, init_norm, lm_head)
+                     init_generator, init_mlp, init_norm, lm_head,
+                     pin_grad)
 from .config import ArchConfig, FULL_WINDOW
 
 Params = dict
@@ -198,7 +199,9 @@ class DecoderLM:
         """Token embeddings of ``tokens`` (B, T) at positions [pos,
         pos + T), plus the learned positions there where the config has
         them."""
-        x = p["embed"][tokens.long()].to(cdt(self.cfg))
+        embed = pin_grad(p["embed"]) if self.cfg.tie_embeddings \
+            else p["embed"]
+        x = embed[tokens.long()].to(cdt(self.cfg))
         if self.cfg.pos == "learned":
             x = x + p["pos_embed"][pos:pos + tokens.shape[1]].to(x.dtype)
         return constrain_batch(x)

@@ -44,6 +44,7 @@ counter takes ``meta`` tensors only and raises on any other.
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import Counter
 
@@ -89,6 +90,24 @@ def _nbytes(x) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
     return 0
+
+
+#: Modules between an op's caller and the counter: the dispatch mode
+#: itself and the wrappers torch puts around internal functions.
+_PASS_THROUGH = ("repro_torch.roofline.op_count", "torch.utils._python_dispatch",
+                 "torch._ops", "torch._compile", "torch._dynamo")
+
+
+def _called_from_dtensor() -> bool:
+    """Whether the op being counted was called by ``DTensor``'s own code
+    (its placement and sharding math), not by the step."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_globals.get("__name__", "")
+        if not name.startswith(_PASS_THROUGH):
+            return name.startswith("torch.distributed.tensor")
+        f = f.f_back
+    return False
 
 
 def _numel(x) -> int:
@@ -182,9 +201,13 @@ class OpCounter(TorchDispatchMode):
         if self.fold_loops:
             # DTensor's own bookkeeping (the mesh's rank map, the
             # tensors its shape inference starts from) is host views and
-            # allocations, which do no work and are passed above
+            # allocations, which do no work and are passed above, and
+            # host tensors its placement code makes (the shard offsets of
+            # a view that joins two sharded dims), passed here
             real = [t.device for t in (*flat_in, *tree_leaves(out))
                     if isinstance(t, torch.Tensor) and t.device.type != "meta"]
+            if real and _called_from_dtensor():
+                return
             if real:
                 raise FoldOnRealData(
                     f"a counter folding loops takes meta tensors only; "

@@ -12,6 +12,8 @@ in its warmup steps, so the online tick runs on every step below
 
 from __future__ import annotations
 
+import sys
+import threading
 from typing import Callable
 
 import torch
@@ -31,6 +33,23 @@ def init_train_state(model, optimizer: AdamW,
     params = model.init(generator)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def import_dynamo_off_stack() -> None:
+    """Import ``torch._dynamo`` once, on a thread of its own.
+
+    torch imports it lazily, on the first call of a function it wraps in
+    ``torch._disable_dynamo`` (``torch.utils.checkpoint.checkpoint``, which
+    the loss and remat call). That import leaves one of its frames in a
+    reference cycle (``torch.fx.wrap`` keeps ``inspect.currentframe()``
+    in a local), and the frame's ``f_back`` chain pins every frame of the
+    calling stack: in a train step, the train state itself stays alive
+    after the caller drops it, until the cycle collector runs. On a
+    thread of its own the import pins that thread's frames alone."""
+    if "torch._dynamo" not in sys.modules:
+        t = threading.Thread(target=__import__, args=("torch._dynamo",))
+        t.start()
+        t.join()
 
 
 def move_batch(batch: dict, device: torch.device) -> dict:
@@ -54,6 +73,7 @@ def make_train_step(model, optimizer: AdamW,
     one's, as the reference's scan leaves them. The microbatch loop is
     ``core.trip_count.loop``: a dry-run's counter on ``meta`` tensors may
     run one microbatch and count it ``microbatches`` times."""
+    import_dynamo_off_stack()
     if online is None:
         online = []
     elif not isinstance(online, (list, tuple)):

@@ -32,16 +32,19 @@ def leaves(tree) -> list:
 def unflatten(like, values) -> Any:
     """``like``'s structure with its leaves replaced by ``values`` (in
     :func:`leaves` order)."""
-    it = iter(values)
+    return _build(like, iter(values))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it) -> Any:
+    """``node`` rebuilt from the iterator ``it``. A module-level function,
+    not a closure over itself: a recursive closure is a reference cycle
+    (the function, its cell), which would keep ``it`` and every value in
+    it (a train state's tensors) alive until the cycle collector runs."""
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -237,18 +237,21 @@ def test_ops_attention_routes_flashable_calls_through_the_kernel(
 @pytest.mark.parametrize("causal", [True, False])
 def test_ops_attention_at_head_dims_the_kernel_does_not_take(rng, causal,
                                                              head_dim):
-    """D 384 and 512 meet the reference's flash predicate, but K4 takes
-    only ``HEAD_DIMS``: the port computes such calls with the plain
-    ``ref.attention_ref``, not through the flash kernel, and returns what
-    the reference's ``ops.attention`` returns (float32, the tuner's
-    tolerance: rtol 1e-5, atol 1e-5 x max(1, max|ref|))."""
-    assert head_dim not in flash_attention.HEAD_DIMS
+    """D 384 and 512 meet the reference's flash predicate, and K4 takes
+    them (``HEAD_DIMS``): the port sends such calls through the flash
+    kernel's ``WisdomKernel`` (its plain version on CPU tensors), in the
+    config the card takes at that D, and returns what the reference's
+    ``ops.attention`` returns (float32, the tuner's tolerance: rtol 1e-5,
+    atol 1e-5 x max(1, max|ref|))."""
+    assert head_dim in flash_attention.HEAD_DIMS
     q, k, v = _qkv(rng, 1, 2, 2, 128, 128, head_dim)
     want = repro_ops.attention(q, k, v, causal=causal)
     kernel = ops.fa_causal_kernel if causal else ops.fa_full_kernel
     n0 = len(kernel.stats)
     got = ops.attention(*_port([q, k, v]), causal=causal)
-    assert len(kernel.stats) == n0
+    assert len(kernel.stats) == n0 + 1
+    assert not flash_attention.card_refusal(
+        kernel.stats[-1].config, "mma", head_dim, "float32")
     _assert_close(got, want)
 
 

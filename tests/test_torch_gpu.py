@@ -321,27 +321,48 @@ def test_flash_attention_matches_plain_version(cuda_device, dtype, causal,
         assert ran["wgmma"] >= 2 and set(ran) <= {"wgmma", "mma"}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [384, 512])
 @pytest.mark.parametrize("causal", [True, False])
-def test_ops_attention_head_dims_without_a_kernel_run_plain(cuda_device,
-                                                            causal, head_dim):
-    """K4 has no counterpart at D 384 and 512 (the reference's kernel takes
-    any D % 128 == 0): ops.attention computes such calls on CUDA tensors
-    with the plain ref.attention_ref and launches no flash kernel. A K4
-    that takes these head dims replaces this routing, and this test."""
+def test_ops_attention_at_head_dims_384_and_512_launches_k4(
+        cuda_device, monkeypatch, tmp_path, causal, head_dim, dtype):
+    """D 384 and 512 (the reference's kernel takes any D % 128 == 0): on
+    CUDA tensors ops.attention launches K4 (the mma body, which splits the
+    output's head dim across warps), seen by the launch observer the
+    dry-run counts with, in the config the card takes at that D (the
+    default, or flash_attention.FIT_CONFIGS where the card refuses it),
+    and matches the plain version at the tuner's tolerances, GQA group 4
+    (8 q heads on 2 kv heads), S 256."""
+    from repro_torch.core import wisdom_kernel
     from repro_torch.kernels import ops
 
-    assert head_dim not in flash_attention.HEAD_DIMS
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn((1, 2, 128, head_dim), generator=g,
-                           device=cuda_device) for _ in range(3))
+    monkeypatch.setenv("KERNEL_LAUNCHER_WISDOM_DIR", str(tmp_path))
+    ops.reload_wisdom()
+    assert head_dim in flash_attention.HEAD_DIMS
+    g = torch.Generator(device=cuda_device).manual_seed(head_dim)
+    q, k, v = (torch.randn((2, h, 256, head_dim), generator=g,
+                           device=cuda_device).to(getattr(torch, dtype))
+               for h in (8, 2, 2))
+    seen = []
     fa = _build.CUDA_KERNELS["flash_attention"]
-    before = (fa.launches, dict(flash_attention.BODY_LAUNCHES))
+    before = (fa.launches, flash_attention.BODY_LAUNCHES.get("mma", 0))
+    monkeypatch.setattr(wisdom_kernel, "LAUNCH_OBSERVERS",
+                        [lambda b, c, p, d: seen.append((b.name, c, p, d))])
     got = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert (fa.launches, dict(flash_attention.BODY_LAUNCHES)) == before
-    want = ref.attention_ref(q, k, v, causal=causal)
-    assert verify_outcome(got, want, "float32").ok
+    name = "flash_attention_causal" if causal else "flash_attention_full"
+    cfg = flash_attention.fit_config(get_kernel(name).default_config(),
+                                     head_dim, dtype)
+    assert seen == [(name, cfg, (16, 4, 256, head_dim), dtype)]
+    assert (fa.launches, flash_attention.BODY_LAUNCHES["mma"]) == (
+        before[0] + 1, before[1] + 1)
+    want = ref.flash_attention_ref_factory(causal)(
+        q.reshape(16, 256, head_dim), k.reshape(4, 256, head_dim),
+        v.reshape(4, 256, head_dim)).reshape(q.shape)
+    out = verify_outcome(got, want, dtype)
+    assert out.ok, out.error
+    assert flash_attention.row_l2_error(got, want) <= \
+        flash_attention.ROW_L2_TOL[dtype]
 
 
 def test_flash_attention_refused_launch_raises(cuda_device):

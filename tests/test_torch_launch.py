@@ -341,11 +341,22 @@ def test_per_shard_attention_on_two_ranks_equals_the_whole(tmp_path):
 # ---------------------------------------------------------------- dry-run ----
 
 #: Reduced cells: (arch, shape, mesh); the batch is cut to 32 so every
-#: microbatch of the train cells keeps a row a data rank.
+#: microbatch of the train cells keeps a row a data rank. The reduced
+#: configs have 4 q and 2 kv heads (rwkv 4 heads), so on (2, 4) the model
+#: axis divides neither gemma2's kv heads nor whisper's cross-attention
+#: kv heads (the head split reshards first, ``common.split_heads``; the
+#: GQA attention runs per shard, ``sharded.gqa_kv_head``; decode gathers
+#: q's heads against a cache split on the sequence), and on (2, 2) rwkv's
+#: wkv state splits batch and heads on two mesh dims (the recurrence runs
+#: per shard, ``sharded.per_shard``; its shifts pad by a cat).
 DRY = [("codeqwen1.5-7b", "train_4k", (2, 2)),
        ("deepseek-moe-16b", "train_4k", (2, 2)),
        ("codeqwen1.5-7b", "decode_32k", (2, 2, 2)),
-       ("deepseek-moe-16b", "decode_32k", (2, 2, 2))]
+       ("deepseek-moe-16b", "decode_32k", (2, 2, 2)),
+       ("gemma2-2b", "train_4k", (2, 4)),
+       ("whisper-base", "decode_32k", (2, 4)),
+       ("rwkv6-7b", "prefill_32k", (2, 2)),
+       ("rwkv6-7b", "decode_32k", (2, 2))]
 
 
 @pytest.mark.parametrize("arch,shape_name,mesh_shape", DRY)
@@ -374,6 +385,114 @@ def test_reduced_cell_dry_runs_on_a_fake_mesh(group, arch, shape_name,
     assert sh.validate_specs(cache, sh.cache_pspecs(cache, mesh), mesh) == []
     assert sh.validate_specs(inputs, sh.batch_pspecs(inputs, mesh),
                              mesh) == []
+
+
+def test_mla_prefill_folds_its_blockwise_attention(group):
+    """A reduced deepseek-v2-236b prefill at S 1024 (so MLA's expanded
+    attention runs ``blockwise_attention_ref``) dry-runs on (2, 2). The
+    chunk loops are ``trip_count.scan``s: at MLA's head dims and S 8192
+    (16 x 8 chunk pairs) the folding counter runs the first, second and
+    last step of each loop and counts the second for the steps between,
+    the same flops and bytes as the unfolded loop, causally masked pairs
+    included, in a fraction of the ops."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.roofline.op_count import OpCounter
+
+    cfg = get_arch("deepseek-v2-236b").reduced()
+    shape = dataclasses.replace(shapes.SHAPES["prefill_32k"], seq=1024,
+                                global_batch=32)
+    mesh = mesh_mod.make_fake_mesh((2, 2), ("data", "model"))
+    rec = run_cell("deepseek-v2-236b", "prefill_32k", mesh, cfg=cfg,
+                   shape=shape, verbose=False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["collective_bytes"]["total"] > 0
+    mf = rec["roofline"]["model_flops"]
+    assert 0.8 * mf < rec["hlo_walk"]["flops"] * rec["chips"] < 8 * mf
+    m = cfg.mla
+    q = torch.empty((8, cfg.n_heads, 8192, m.d_nope + m.d_rope),
+                    device="meta")
+    v = torch.empty((8, cfg.n_heads, 8192, m.d_v), device="meta")
+    counts = {}
+    for fold in (False, True):
+        with OpCounter(fold_loops=fold) as c:
+            out = kref.blockwise_attention_ref(q, q, v, causal=True)
+        assert out.shape == v.shape
+        counts[fold] = (c.result()["flops"], c.result()["bytes"], c._ops)
+    assert counts[True][:2] == counts[False][:2]
+    assert counts[True][2] * 4 < counts[False][2]
+
+
+#: One rank of a 4-rank gloo group on the host: a reduced gemma2-2b (4 q
+#: and 2 kv heads; with ``n_heads=2, n_kv_heads=1`` neither divides 4) on a
+#: (1, 4) mesh, parameters and tokens distributed by the sharding rules;
+#: prints, on rank 0, each variant's max abs error of the meshed logits
+#: against the run without a mesh, and max|logits|.
+_FOUR_RANK_WORKER = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_arch
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import use_mesh
+from repro_torch.models import build_model
+from repro_torch.models.common import lm_head
+
+torch.set_num_threads(1)
+rank, store = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=4)
+mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+out = {}
+for name, over in (("4q2kv", {}), ("2q1kv", {"n_heads": 2,
+                                             "n_kv_heads": 1})):
+    cfg = get_arch("gemma2-2b").reduced(**over)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 32)))
+    whole = lm_head(cfg, params, model.forward(params, tokens)[0])
+    dp = sh.distribute_tree(params, sh.param_pspecs(params, mesh, cfg,
+                                                    serve=True), mesh)
+    dt = sh.distribute_tree({"t": tokens}, sh.batch_pspecs(
+        {"t": tokens}, mesh), mesh)["t"]
+    with use_mesh(mesh):
+        got = lm_head(cfg, dp, model.forward(dp, dt)[0]).full_tensor()
+    out[name] = [float((got - whole).abs().max()),
+                 float(whole.abs().max())]
+if rank == 0:
+    print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+def test_gemma2_logits_on_four_ranks_equal_the_run_without_a_mesh(
+        tmp_path):
+    """Four real ranks (gloo, on the host) on a (1, 4) mesh whose model
+    axis divides neither gemma2's kv heads (4 q on 2 kv: the GQA
+    attention runs per shard, each rank on its one kv head) nor, in the
+    second variant, any of its heads (2 q on 1 kv: ``split_heads``
+    replicates them): the logits equal those of the run without a mesh
+    to float32 rounding (1e-5 x max(1, max|logits|))."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in ("src", os.environ.get("PYTHONPATH")) if p),
+        OMP_NUM_THREADS="1")
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _FOUR_RANK_WORKER,
+                               str(r), store], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(4)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    got = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert set(got) == {"4q2kv", "2q1kv"}
+    for name, (err, top) in got.items():
+        assert err <= 1e-5 * max(1.0, top), (name, err, top)
 
 
 def test_debug_mesh_train_loss_equals_the_loss_without_a_mesh(group):

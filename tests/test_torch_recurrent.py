@@ -324,6 +324,98 @@ def test_rwkv_channel_mix_matches_repro():
     _close(prev, jprev)
 
 
+# Before the DTensor rewrites (F.pad shifts, a (B*H) ``bmm`` loop): the
+# port's own formulas, kept here as the oracle the rewrites equal bit for
+# bit on plain tensors.
+def _shift_with_pad(x):
+    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _wkv_scan_flat(u, r, k, v, w):
+    B, S_, H, hd = r.shape
+    bonus = (r * u * k).sum(-1, keepdim=True) * v
+    r, k, v, w = (a.transpose(0, 1).reshape(S_, B * H, hd)
+                  for a in (r, k, v, w))
+    h = torch.zeros((B * H, hd, hd), dtype=torch.float32)
+    ys = []
+    for s0 in range(0, S_, rwkv.WKV_CHUNK):
+        sl = slice(s0, s0 + rwkv.WKV_CHUNK)
+        kv = (k[sl, :, :, None] * v[sl, :, None, :]).unbind(0)
+        for r_t, kv_t, w_t in zip(r[sl, :, None, :].unbind(0), kv,
+                                  w[sl, :, :, None].unbind(0)):
+            ys.append(torch.bmm(r_t, h))
+            h = torch.addcmul(kv_t, w_t, h)
+    y = torch.stack(ys).reshape(S_, B, H, hd).transpose(0, 1)
+    return h.reshape(B, H, hd, hd), y + bonus
+
+
+def _wkv_step_einsum(u, h, r_t, k_t, v_t, w_t):
+    kv = k_t[..., :, None] * v_t[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r_t, h + u[..., :, None] * kv)
+    return w_t[..., :, None] * h + kv, y
+
+
+def _scan_chunk_with_pad(h0, xq, bq, cq, dtq, A):
+    F = torch.nn.functional
+    a = torch.exp(dtq[..., None] * A)
+    b = (dtq * xq)[..., None] * bq[:, :, None, :]
+    d = 1
+    while d < a.shape[1]:
+        a_prev = F.pad(a[:, :-d], (0, 0, 0, 0, d, 0), value=1.0)
+        b_prev = F.pad(b[:, :-d], (0, 0, 0, 0, d, 0))
+        b = torch.addcmul(b, a, b_prev)
+        a = a * a_prev
+        d *= 2
+    h = torch.addcmul(b, a, h0[:, None])
+    return h[:, -1], torch.einsum("bqdn,bqn->bqd", h, cq)
+
+
+def test_shift_pad_and_wkv_rewrites_equal_the_pads_and_bmm_bit_for_bit():
+    """rwkv's ``_shift`` (a cat of a zero row), its wkv scan in
+    ``trip_count.scan`` chunks (130 tokens: two whole chunks of 64 and a
+    tail of 2) and its decode step (per shard on a mesh), and mamba's
+    conv and scan pads (cats of zero and one slices) give the same bits
+    as the F.pad and whole-sequence (B*H) ``bmm`` forms they replace, and
+    the reference's shift and wkv step to float32 rounding."""
+    rng = np.random.default_rng(11)
+    f32 = np.float32
+    x = torch.from_numpy(rng.standard_normal((B, 130, 64)).astype(f32))
+    assert torch.equal(rwkv._shift(x), _shift_with_pad(x))
+    _close(rwkv._shift(x), repro_rwkv._shift(jnp.asarray(x.numpy())))
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, 130, 4, 16))
+                                .astype(f32)) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.5, 1.0, (B, 130, 4, 16)).astype(f32))
+    u = torch.from_numpy(rng.standard_normal((4, 16)).astype(f32))
+    for g, want in zip(rwkv._wkv_scan(u, r, k, v, w),
+                       _wkv_scan_flat(u, r, k, v, w), strict=True):
+        assert torch.equal(g, want)
+    h = torch.from_numpy(rng.standard_normal((B, 4, 16, 16)).astype(f32))
+    step = (u[None], h, r[:, 0], k[:, 0], v[:, 0], w[:, 0])
+    got = rwkv._wkv_step(*step)
+    for g, want, ref in zip(got, _wkv_step_einsum(*step), repro_rwkv._wkv_step(
+            *(jnp.asarray(t.numpy()) for t in step)), strict=True):
+        assert torch.equal(g, want)
+        _close(g, ref)
+    p = {"conv_w": torch.from_numpy(rng.standard_normal((4, 32))
+                                    .astype(f32))}
+    xp = torch.from_numpy(rng.standard_normal((B, 20, 32)).astype(f32))
+    w_ = p["conv_w"]
+    padded = torch.nn.functional.pad(xp, (0, 0, 3, 0))
+    want = torch.nn.functional.silu(sum(padded[:, i:i + 20] * w_[3 - i]
+                                        for i in range(4)))
+    assert torch.equal(mamba._conv(p, xp), want)
+    h0 = torch.from_numpy(rng.standard_normal((B, 32, 4)).astype(f32))
+    xq = torch.from_numpy(rng.standard_normal((B, 16, 32)).astype(f32))
+    bq, cq = (torch.from_numpy(rng.standard_normal((B, 16, 4)).astype(f32))
+              for _ in range(2))
+    dtq = torch.from_numpy(rng.uniform(0.01, 0.1, (B, 16, 32)).astype(f32))
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (32, 4)).astype(f32))
+    for g, want in zip(mamba._scan_chunk(h0, xq, bq, cq, dtq, A),
+                       _scan_chunk_with_pad(h0, xq, bq, cq, dtq, A),
+                       strict=True):
+        assert torch.equal(g, want)
+
+
 def test_group_norm_uses_the_population_variance():
     rng = np.random.default_rng(7)
     y = rng.standard_normal((B, 3, 4, 16)).astype(np.float32)

@@ -314,3 +314,29 @@ def test_reduced_train_step_counts_near_model_flops_and_the_walker():
     mf = model_flops(cfg, "train", STEP_B, STEP_S)
     assert 0.8 * mf < full["flops"] < 8 * mf
     assert full["flops"] == pytest.approx(_ref_walker_flops(arch), rel=0.25)
+
+
+def test_a_folded_scan_counts_forward_and_backward_as_unfolded():
+    """``trip_count.scan`` under a folding counter runs 3 of its 10 steps
+    (the first, a middle one counted 8 times, the last) and counts what
+    the unfolded loop does, forward and backward: the pieces' gradients
+    joined, the gradients of a tensor every step reads summed, the carry's
+    chain through every step."""
+    def step(i, carry, w, x):
+        h = torch.tanh(carry[0] @ w + x)
+        return (h,), h * 2.0
+
+    counts = []
+    for fold in (False, True):
+        h0, w = (torch.empty(s, device="meta", requires_grad=True)
+                 for s in ((4, 8), (8, 8)))
+        xs = torch.empty(40, 8, device="meta", requires_grad=True)
+        with OpCounter(fold_loops=fold) as c:
+            (h,), y = trip_count.scan(10, step, (h0,), (w,), (xs,))
+            grads = torch.autograd.grad(y.sum() + h.sum(), (h0, w, xs))
+        assert y.shape == (40, 8) and [g.shape for g in grads] == [
+            h0.shape, w.shape, xs.shape]
+        counts.append((c.flops, c.bytes, c._ops))
+    assert counts[1][:2] == counts[0][:2]
+    assert counts[1][2] < counts[0][2] / 2
+    assert not trip_count.FOLDING

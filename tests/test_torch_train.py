@@ -690,3 +690,59 @@ def test_train_lm_example_needs_a_card_by_default(tmp_path):
         pytest.skip("this host has a card; the test is of one without")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+#: A fresh interpreter: a reduced codeqwen (remat) trained 2 steps of 2
+#: microbatches by ``TrainDriver`` with the cycle collector off; prints
+#: whether a parameter and an AdamW moment of the dropped state survive.
+_DROPPED_STATE = r"""
+import gc, sys, weakref
+import torch
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_arch
+from repro_torch.data import SyntheticTokenDataset
+from repro_torch.models import build_model
+from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.runtime import TrainDriver
+from repro_torch.train import make_train_step
+from repro_torch.tree import leaves
+
+gc.disable()
+cfg = get_arch("codeqwen1.5-7b").reduced()
+model = build_model(cfg, device="cpu", remat=True)
+opt = AdamW(lr=cosine_schedule(3e-4, 2, 10))
+driver = TrainDriver(
+    model=model, optimizer=opt,
+    train_step=make_train_step(model, opt, microbatches=2),
+    dataset=SyntheticTokenDataset(vocab=cfg.vocab, seq=32, global_batch=4,
+                                  seed=1),
+    ckpt=CheckpointManager(sys.argv[1], keep=1, save_every=1),
+    total_steps=2, log_every=10)
+run = driver.run(0)
+refs = [weakref.ref(leaves(run["state"]["params"])[0]),
+        weakref.ref(leaves(run["state"]["opt"])[-1])]
+del run, driver
+print([r() is not None for r in refs])
+"""
+
+
+def test_a_dropped_train_state_is_freed_without_the_cycle_collector(
+        tmp_path):
+    """Reference counts alone free a dropped train state, as they do in
+    the reference, with the cycle collector off from the start of a fresh
+    interpreter: no reference cycle holds its tensors (a recursive closure
+    in ``tree.unflatten`` held the values it rebuilt; torch's lazy import
+    of ``torch._dynamo`` on the first ``torch.utils.checkpoint`` call
+    pinned the calling frames, the train step's among them)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in ("src", os.environ.get("PYTHONPATH")) if p),
+        OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", _DROPPED_STATE,
+                        str(tmp_path / "ckpt")], env=env, text=True,
+                       capture_output=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "[False, False]", p.stdout
