@@ -8,7 +8,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 1. environment: torch, CUDA and nvcc versions, the card's name, capability
    (must be 9.0) and power limit;
 2. build every kernel of the paths from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source and config, all started together) and hold each
+   (one nvcc per source and config, all started together; this includes
+   every config phase 4's MicroHH tuning will time, which its seeded
+   bayes search draws before any score steers it) and hold each
    CUDA kernel against its plain PyTorch version on the card: the stencils
    on the small test shapes and a ragged (5, 7, 9) in float32 and
    bfloat16, in three ldg configs and four tile ones (K1, K2a and K2b), and
@@ -34,7 +36,7 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    bfloat16, select each in tier "exact", then launch both at 512^3 through a
    fallback tier and check them against their plain versions; the stencils'
    launches are printed by body and by (body, dtype), and advec_u must have
-   run its tile body;
+   run its tile body; phases 3 and 4 together must run no nvcc;
 5. the LM slice on codeqwen1.5-7b at full width: (a) in float32 with 2
    layers, prefill logits (flash kernel) against the same prompt fed token
    by token through decode_step; (b) in bfloat16 with all 32 layers, prefill
@@ -79,7 +81,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    each through a WisdomKernel with ``enable_online_tuning(objective=
    "wallclock", seed=0)`` for up to 400 launches: activation at the third
    miss, screening by the cost model on gpu-h100, a finished bracket of
-   live trials scored by their CUDA-event launch times (a variant's
+   live trials over the 4 best-screened configs (ONLINE_BRACKET; each
+   built by nvcc on the launching thread at its first trial) scored by
+   their CUDA-event launch times (a variant's
    first, cold launch unscored), then either a promotion through the
    gate on the card (the next launch selects it in tier exact with
    nothing to compile, its record has online provenance
@@ -243,6 +247,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    (finite); then each cell counted again on ``meta`` under a fake 1x1
    mesh, its microbatches by trip count, beside the card's count.
 
+Profiler windows record the card's kernels only, except phase 11's
+training step, which also records host operators to read the host's wait
+in event syncs.
+
 Launch counts are set to 0 just before each path (phases 3-4, phase 5,
 phase 11a's driver run) and read just after; phase 12 reads K4's
 launches around each model's path (its prefills, decode steps, profiler
@@ -288,6 +296,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     latest_step, load_checkpoint)
 from repro_torch.configs import get_arch, list_archs  # noqa: E402
+from repro_torch.configs import microhh as microhh_config  # noqa: E402
 from repro_torch.core import (WisdomKernel, current_device_kind,  # noqa: E402
                               get_kernel, list_captures)
 from repro_torch.core.capture import CAPTURE_DIR_ENV, CAPTURE_ENV  # noqa: E402
@@ -354,8 +363,9 @@ from repro_torch.tunebench import (DatasetStore, SpaceDataset,  # noqa: E402
                                    dump_report, record_space)
 from repro_torch.tunebench import compare as compare_strategies  # noqa: E402
 from repro_torch.tuner import (CostModel, CostModelEvaluator,  # noqa: E402
-                               WallClockEvaluator, fit_from_dataset,
-                               tune_capture, tune_kernel)
+                               EvalResult, WallClockEvaluator,
+                               fit_from_dataset, tune_bayes, tune_capture,
+                               tune_kernel)
 from repro_torch.tuner.runner import (L2_FLUSH_BYTES,  # noqa: E402
                                       _tolerances, verify_outcome)
 
@@ -717,11 +727,37 @@ def stencil_configs(name: str) -> list[dict]:
     return [kernel_cfg(name, u) for u in [*LDG_CONFIGS, *TILE_CONFIGS]]
 
 
+#: Phase 4's evaluations a MicroHH scenario. tune_microhh's bayes search
+#: starts with the default and n_init - 1 seeded draws (12 in all) before
+#: any score steers it, so every config of an 8-evaluation session is
+#: known before it runs and phase 1 builds them all.
+MICROHH_EVALS = 8
+
+
+def microhh_tuning_configs() -> list[tuple[str, dict]]:
+    """(kernel, config) of each evaluation phase 4's MicroHH tuning makes:
+    tune_microhh's seeded bayes search on each 256^3 scenario, replayed
+    with one score for every config (its first 12 picks ignore scores)."""
+    out = []
+    kind = current_device_kind(torch.device("cuda"))
+    for sc in microhh_config.scenarios(grids=(microhh_config.GRIDS[0],),
+                                       devices=(kind,)):
+        space = get_kernel(sc.kernel).space
+        res = tune_bayes(space, lambda c: EvalResult(1.0, True),
+                         max_evals=MICROHH_EVALS,
+                         rng=np.random.default_rng(
+                             tune_microhh.stable_seed(sc.key)))
+        out += [(sc.kernel, e.config) for e in res.evaluations]
+    return out
+
+
 def phase_build() -> None:
     specs = []
     for name in STENCILS:
         src = "advec_u.cu" if name == "advec_u" else "diff_uvw.cu"
         specs += [(src, stencil_defines(c)) for c in stencil_configs(name)]
+    specs += [(f"{name}.cu", stencil_defines(c))
+              for name, c in microhh_tuning_configs()]
     specs += matmul_specs()
     specs += flash_specs() + flash_wide_specs()
     specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
@@ -1000,14 +1036,19 @@ def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
     """Phases 3-4, their wisdom kept under ``wisdom``. Returns the two
     examples' results and the CUDA kernels' launches."""
     _build.reset_launch_counts()
+    runs0 = _build.NVCC_RUNS
     qs = quickstart.main(["--device", "cuda", "--max-evals", "20",
                           "--budget-seconds", "120",
                           "--wisdom-dir", str(wisdom / "quickstart")])
     check(qs["tiers"] == ("default", "exact"),
           f"quickstart tiers {qs['tiers']}, want ('default', 'exact')")
-    mh = tune_microhh.main(["--device", "cuda", "--max-evals", "8",
-                            "--budget-seconds", "120",
+    mh = tune_microhh.main(["--device", "cuda", "--max-evals",
+                            str(MICROHH_EVALS), "--budget-seconds", "120",
                             "--wisdom-dir", str(wisdom / "microhh")])
+    builds = _build.NVCC_RUNS - runs0
+    print(f"phases 3-4 nvcc runs: {builds}", flush=True)
+    check(builds == 0, f"phases 3-4 built {builds} libraries: phase 1 must "
+          f"build every config the two loops launch")
     for sc, tier, cfg in mh["selected"]:
         check(tier == "exact", f"{sc.key}: selected tier {tier}")
     for name, dtype, st, _ in mh["launched"]:
@@ -1257,13 +1298,14 @@ def timed(fn):
 
 
 def device_profile(fn, label: str, steps: int = 1, top: int = 6,
-                   own: str = "", host_ops: bool = True) -> dict:
+                   own: str = "", host_ops: bool = False) -> dict:
     """Run ``fn`` under torch.profiler: the device's kernel time per step,
     the window's host time per step (profiler overhead included), the
     kernels that took the most device time and, where ``own`` names a
-    kernel function, that kernel's own device time per step. Without
-    ``host_ops`` the profiler records no host operators (for a window of
-    ~10^5 launches, whose operator events cost minutes to collect)."""
+    kernel function, that kernel's own device time per step. With
+    ``host_ops`` the profiler also records host operators, and the host's
+    wait in event syncs is read from them; they cost seconds to collect
+    for a window of many small operators (minutes for ~10^5 launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1278,16 +1320,17 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6,
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
-    # the host's wait in cudaEventSynchronize (WisdomKernel's per-launch
-    # sync) inside the window
-    sync_ms = sum(e.cpu_time_total for e in prof.key_averages()
-                  if e.key == "cudaEventSynchronize") / 1e3
     res = {"device_ms_per_step": busy / steps,
-           "event_sync_ms_per_step": sync_ms / steps,
            "profiled_wall_ms_per_step": wall * 1e3 / steps,
            "profiler_s": time.perf_counter() - t0,
            "top": [(e.key[:70], round(e.self_device_time_total / 1e3
                                       / steps, 4)) for e in kernels[:top]]}
+    if host_ops:
+        # the host's wait in cudaEventSynchronize (WisdomKernel's
+        # per-launch sync) inside the window
+        res["event_sync_ms_per_step"] = sum(
+            e.cpu_time_total for e in prof.key_averages()
+            if e.key == "cudaEventSynchronize") / 1e3 / steps
     if own:
         res["own_ms_per_step"] = sum(
             e.self_device_time_total for e in kernels if own in e.key) \
@@ -1609,6 +1652,9 @@ K2B_LDG = kernel_cfg("diff_uvw_single", {})
 #: share of the card's memory.
 CHILD_TIMEOUT_S, HANG_TIMEOUT_S = 120.0, 5.0
 CHILD_DEVICE_FRACTION = 0.02
+#: Configs in phase 8's bracket of live trials (the tuner's default is 8):
+#: each is built by nvcc on the launching thread at its first trial.
+ONLINE_BRACKET = 4
 
 
 def _ranks(xs) -> np.ndarray:
@@ -1649,7 +1695,8 @@ def online_scenario(name: str, wisdom: Path, reg) -> dict:
     cuda = torch.device("cuda")
     k = WisdomKernel(get_kernel(name), wisdom_dir=wisdom,
                      device_kind=current_device_kind())
-    svc = enable_online_tuning(k, objective="wallclock", seed=0)
+    svc = enable_online_tuning(k, objective="wallclock", seed=0,
+                               bracket_size=ONLINE_BRACKET)
     DEMAND[name] = svc.tracker
     args = tune_microhh.launch_args(name, ONLINE_GRID, "float32", cuda)
     activated_at = None
@@ -2306,24 +2353,29 @@ def fleet_processes(tmp: Path) -> dict:
     d = tmp / "fleet-cli"
     bus = ControlBus(DirectoryTransport(d))
     publish_demand(bus, "phase8", DEMAND)
+    secs, t = {}, time.perf_counter()
     print("fleet (3) plan: " + check_proc(
         fleet_run("repro_torch.fleet", "plan", "--dir", str(d)), "plan")
         .strip().replace("\n", " | "), flush=True)
+    secs["plan"], t = time.perf_counter() - t, time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         works = list(pool.map(lambda w: fleet_run(
             "repro_torch.fleet", "work", "--dir", str(d), "--worker-id", w,
             "--poll", "0.5"), ("host-a", "host-b")))
+    secs["work"] = time.perf_counter() - t
     for w, p in zip(("host-a", "host-b"), works):
         print(f"fleet (3) {w}: " + check_proc(p, f"work {w}").strip()
               .replace("\n", " | "), flush=True)
-    before = launch_counts()
+    before, t = launch_counts(), time.perf_counter()
     rc = fleet_cli(["coordinate", "--dir", str(d), "--rounds", "3"])
+    secs["coordinate"], t = time.perf_counter() - t, time.perf_counter()
     gate = launches_since(before)
     check(rc == 0 and gate.get("advec_u", 0) > 0
           and gate.get("diff_uvw_fused", 0) > 0,
           f"fleet coordinate: rc {rc}, gate launches {gate}")
     status = check_proc(fleet_run("repro_torch.fleet", "status", "--dir",
                                   str(d)), "status")
+    secs["status"] = time.perf_counter() - t
     print("fleet (3) status: " + status.strip().replace("\n", " | "),
           flush=True)
     done = bus.docs("done")
@@ -2333,7 +2385,8 @@ def fleet_processes(tmp: Path) -> dict:
     store = WisdomStore(tmp / "fleet-cli-pulled")
     PullSync(store, DirectoryTransport(d)).pull()
     cuda = torch.device("cuda")
-    out = {"gate_launches": gate, "jobs": len(done), "selected": {}}
+    out = {"gate_launches": gate, "jobs": len(done), "selected": {},
+           "seconds": secs}
     for name in sorted(DEMAND):
         rec, = store.load(name).records
         k = WisdomKernel(get_kernel(name), wisdom_dir=store.root,
@@ -2625,7 +2678,7 @@ def train_full_width(tmp: Path) -> tuple:
         out["profile"] = device_profile(lambda: step_fn(state, batch),
                                         f"train step ({LM_ARCH}, "
                                         f"{TRAIN_LAYERS} layers)",
-                                        own="fa_wgmma_kernel")
+                                        own="fa_wgmma_kernel", host_ops=True)
     ops.reload_wisdom()
     hist = run["history"]
     losses = [h["loss"] for h in hist]
@@ -3622,8 +3675,7 @@ def rec_run(name: str, seed: int, serve: bool) -> dict:
     sp = min(S, REC_PROFILE_SEQ)
     prof = device_profile(lambda: model.prefill(
         params, tok[:, :sp], model.init_cache(B, sp + 1), **ex),
-        f"rec {name} prefill {B} x {sp}", top=5,
-        host_ops=cfg.mixer != "rwkv")
+        f"rec {name} prefill {B} x {sp}", top=5)
     _, sec_p = timed(lambda: model.prefill(
         params, tok[:, :sp], model.init_cache(B, sp + 1), **ex))
     prof_dec = device_profile(lambda: model.decode_step(

@@ -110,7 +110,14 @@ class FaultyEvaluator:
 def device_assert(device: str = "cuda") -> None:
     """Trip a device-side assertion (an index past the end of a CUDA
     tensor): the CUDA error is sticky, so the calling process's context is
-    lost and the call raises. A payload for a spawned child only."""
+    lost and the call raises. A payload for a spawned child only.
+
+    Example::
+
+        lost, _ = sandboxed_call(functools.partial(device_assert, "cuda"),
+                                 SandboxSettings(timeout_s=120.0))
+        assert lost.status == "crash"
+    """
     x = torch.zeros(4, device=device)
     x[torch.tensor([1 << 20], device=device)] = 1.0
     torch.cuda.synchronize(device)

@@ -7,8 +7,10 @@ from .costmodel import (INFEASIBLE, CostModel, FittedCostModel,
                         fit_from_dataset, kernel_time)
 from .runner import (CostModelEvaluator, EvalResult, VerifyOutcome,
                      WallClockEvaluator, verify_config, verify_outcome)
-from .strategies import (STRATEGIES, Evaluation, TuningResult, tune_anneal,
-                         tune_bayes, tune_exhaustive, tune_random)
+from .strategies import (STRATEGIES, Evaluation, TuningResult,
+                         evaluation_from_json, evaluation_to_json,
+                         tune_anneal, tune_bayes, tune_exhaustive,
+                         tune_random)
 from .tune import plan_captures, tune_capture, tune_kernel
 
 __all__ = [
@@ -16,7 +18,8 @@ __all__ = [
     "kernel_time",
     "CostModelEvaluator", "EvalResult", "VerifyOutcome", "WallClockEvaluator",
     "verify_config", "verify_outcome",
-    "STRATEGIES", "Evaluation", "TuningResult", "tune_anneal", "tune_bayes",
-    "tune_exhaustive", "tune_random",
+    "STRATEGIES", "Evaluation", "TuningResult", "evaluation_from_json",
+    "evaluation_to_json", "tune_anneal", "tune_bayes", "tune_exhaustive",
+    "tune_random",
     "plan_captures", "tune_capture", "tune_kernel",
 ]

@@ -110,7 +110,17 @@ def _leaves(x) -> list[torch.Tensor]:
 
 def verify_outcome(got, want, dtype: str) -> VerifyOutcome:
     """Compare a kernel's output(s) with the plain version's, in float64,
-    with the reference's dtype-aware tolerances (``_tolerances``)."""
+    with the reference's dtype-aware tolerances (``_tolerances``).
+
+    ``got`` and ``want`` are one tensor each or equal-length sequences
+    (a multi-output kernel); ``want`` is moved to ``got``'s device.
+
+    Example::
+
+        out = verify_outcome(matmul.launch(cfg, a, b), ref.matmul_ref(a, b),
+                             "float32")
+        assert out.ok, out.error
+    """
     rtol, atol = _tolerances(dtype)
     got_l, want_l = _leaves(got), _leaves(want)
     if len(got_l) != len(want_l):

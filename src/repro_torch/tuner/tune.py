@@ -180,7 +180,16 @@ def tune_capture(capture: Path | str | Capture, device_kind: str,
 def plan_captures(paths: Sequence[str], device_kind: str
                   ) -> list[tuple[Capture, list[str]]]:
     """Group capture files into unique (kernel, problem, dtype) scenarios,
-    in first-seen order, with every path that mapped to each."""
+    in first-seen order, with every path that mapped to each.
+
+    The CLI tunes each scenario once, however many launches captured it.
+
+    Example::
+
+        for cap, paths in plan_captures(sorted(glob.glob("captures/*")),
+                                        "gpu-h100"):
+            tune_capture(cap, "gpu-h100", max_evals=20)
+    """
     plan: dict[tuple, tuple[Capture, list[str]]] = {}
     for p in paths:
         cap = load_capture(p)
