@@ -1316,8 +1316,11 @@ def device_profile(fn, label: str, steps: int = 1, top: int = 6,
         activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
         _, wall = timed(fn)
+    # the program's spans (``repro_torch.*`` ranges) also show on the
+    # device's timeline, as user annotations over their kernels: not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
     res = {"device_ms_per_step": busy / steps,

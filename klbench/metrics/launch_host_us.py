@@ -1,0 +1,4 @@
+"""`launch_host_us` in the cells that report `step_ms`: see
+``klbench.spans.launch_host_us``."""
+
+from klbench.spans import launch_host_us as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""`sync_idle_share` in the cells that report `train_tokens_per_s`: see
+``klbench.spans.sync_idle_share``."""
+
+from klbench.spans import sync_idle_share as read  # noqa: F401

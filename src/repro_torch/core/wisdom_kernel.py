@@ -131,7 +131,7 @@ class WisdomKernel:
                                 self.builder.get_problem_size(*meta),
                                 self.builder.get_dtype(*meta), config)
         _, _, cached = self.compile_cache.get_or_compile(
-            key, lambda: self.builder.make(config, meta))
+            key, lambda: self._make(config, meta))
         return not cached
 
     def _variant_key(self, device, problem: tuple[int, ...], dtype: str,
@@ -187,34 +187,44 @@ class WisdomKernel:
 
     def __call__(self, *args, config: Config | None = None):
         meta = args_meta(*args)
+        if meta[0].device.type == "meta":
+            return self._stand_in(args, meta, config)
+        with obs.span("launch", "kernel") as sp:
+            return self._launch(args, meta, config, sp)
+
+    def _make(self, config: Config, meta: ArgsMeta):
+        """Build ``config`` for ``meta``'s scenario: a compile-cache miss."""
+        with obs.span("build", "kernel"):
+            return self.builder.make(config, meta)
+
+    def _launch(self, args, meta: ArgsMeta, config: Config | None, sp):
         problem = self.builder.get_problem_size(*meta)
         dtype = self.builder.get_dtype(*meta)
         device = meta[0].device
-
-        if device.type == "meta":
-            return self._stand_in(args, meta, problem, dtype, config)
 
         if capture_requested(self.builder.name):
             write_capture(self.builder.name, problem, dtype, args,
                           extra_meta={"device_kind": self.device_kind,
                                       "source": self.builder.source})
 
-        t_sel0 = time.perf_counter()
-        if config is None:
-            config, tier = self.select_config(problem, dtype)
-        else:
-            tier = "forced"
-        online = self.online
-        if online is not None and tier != "forced":
-            trial = online.before_launch(problem, dtype, meta, config, tier)
-            if trial is not None:
-                config, tier = dict(trial), "trial"
-        select_s = time.perf_counter() - t_sel0
+        with obs.span("select", "kernel"):
+            t_sel0 = time.perf_counter()
+            if config is None:
+                config, tier = self.select_config(problem, dtype)
+            else:
+                tier = "forced"
+            online = self.online
+            if online is not None and tier != "forced":
+                trial = online.before_launch(problem, dtype, meta, config,
+                                             tier)
+                if trial is not None:
+                    config, tier = dict(trial), "trial"
+            select_s = time.perf_counter() - t_sel0
         self._observe_selection(problem, dtype, tier)
 
         fn, make_s, cached = self.compile_cache.get_or_compile(
             self._variant_key(device, problem, dtype, config),
-            lambda: self.builder.make(config, meta))
+            lambda: self._make(config, meta))
         compile_s, load_s = make_s, 0.0
         lib = getattr(fn, "library", None)
         if not cached and lib is not None:
@@ -223,15 +233,18 @@ class WisdomKernel:
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            end.synchronize()
+            with obs.span("enqueue", "kernel"):
+                start.record()
+                out = fn(*args)
+                end.record()
+            with obs.span("sync", "kernel"):
+                end.synchronize()
             launch_s = start.elapsed_time(end) / 1e3
         else:
-            t0 = time.perf_counter()
-            out = fn(*args)
-            launch_s = time.perf_counter() - t0
+            with obs.span("enqueue", "kernel"):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                launch_s = time.perf_counter() - t0
         if LAUNCH_OBSERVERS and device.type == "cuda":
             for observe in LAUNCH_OBSERVERS:
                 observe(self.builder, config, problem, dtype)
@@ -246,34 +259,20 @@ class WisdomKernel:
             m.counter("launch.count", kernel=name).inc()
             m.counter("compile.cache", kernel=name,
                       outcome="hit" if cached else "miss").inc()
-            m.histogram("select.latency_us",
-                        kernel=name).observe(select_s * 1e6)
             m.histogram("launch.latency_us",
                         kernel=name).observe(launch_s * 1e6)
             if not cached:
                 m.histogram("compile.latency_us", kernel=name).observe(
                     (compile_s + load_s) * 1e6)
-        tr = obs.tracer()
-        if tr is not None:
-            # Record the finished launch as one complete event (the work
-            # already happened; re-running it under a context manager
-            # would distort the hot path). ts/dur reconstruct the span,
-            # which covers selection, the nvcc build, the load and the
-            # launch; the args keep the reference's keys, with the load
-            # beside the build.
-            t_end = tr._now_us()
-            dur = round((select_s + compile_s + load_s + launch_s) * 1e6, 3)
-            tr.events.append({
-                "name": "launch", "cat": "kernel", "ph": "X",
-                "ts": round(t_end - dur, 3), "dur": dur,
-                "pid": tr.pid, "tid": tr._tid(),
-                "args": {"kernel": self.builder.name, "tier": tier,
-                         "scenario": format_key((self.device_kind,
-                                                 problem, dtype)),
-                         "cached": cached,
-                         "compile_us": round(compile_s * 1e6, 3),
-                         "load_us": round(load_s * 1e6, 3),
-                         "launch_us": round(launch_s * 1e6, 3)}})
+        if sp.recording:
+            # the reference's keys, with the load beside the build
+            sp.args.update(kernel=self.builder.name, tier=tier,
+                           scenario=format_key((self.device_kind, problem,
+                                                dtype)),
+                           cached=cached,
+                           compile_us=round(compile_s * 1e6, 3),
+                           load_us=round(load_s * 1e6, 3),
+                           launch_us=round(launch_s * 1e6, 3))
         profiler = self.profiler
         if profiler is not None and profiler.due(self.builder.name):
             profiler.profile_launch(
@@ -289,12 +288,14 @@ class WisdomKernel:
                                 cold=not cached)
         return out
 
-    def _stand_in(self, args, meta, problem, dtype, config):
+    def _stand_in(self, args, meta, config):
         """A call on ``meta`` tensors (shapes only, as the dry-run counts
         a step): the selected config's output shape, and nothing launches.
         The observers hear of it, as the work a launch would do; stats,
-        tier tallies, metrics, trace, profiler and online tuner do not, as
+        tier tallies, metrics, spans, profiler and online tuner do not, as
         there is no launch to time."""
+        problem = self.builder.get_problem_size(*meta)
+        dtype = self.builder.get_dtype(*meta)
         if config is None:
             config, _ = self.select_config(problem, dtype)
         for observe in LAUNCH_OBSERVERS:

@@ -57,6 +57,7 @@ import torch
 from repro_torch.core import KernelBuilder, Workload, register
 from repro_torch.core.builder import dtype_name, probe_array
 from repro_torch.core.device import GPU_H100
+from repro_torch.obs import runtime as obs
 
 from . import ref as _ref
 from ._build import CudaKernel
@@ -272,7 +273,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        with torch.enable_grad():
+        with obs.span("attn_backward", "model", grad_out.device), \
+                torch.enable_grad():
             inputs = [t.detach().requires_grad_(True)
                       for t in ctx.saved_tensors]
             out = _ref.flash_attention_ref_factory(ctx.causal)(*inputs)

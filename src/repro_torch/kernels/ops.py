@@ -12,6 +12,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.core import WisdomKernel
+from repro_torch.obs import runtime as obs
 
 from . import advec_u as _advec_mod
 from . import diff_uvw as _diff_mod
@@ -37,9 +38,11 @@ def reload_wisdom() -> None:
 
 def pack_scalars(dxi: float, dyi: float, dzi: float,
                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """The kernels' (1, 4) float32 scalar block [dxi, dyi, dzi, 0]."""
-    return torch.tensor([[dxi, dyi, dzi, 0.0]], dtype=torch.float32,
-                        device=device)
+    """The kernels' (1, 4) float32 scalar block [dxi, dyi, dzi, 0], under
+    the span ``scalars`` (on a card, a copy from pageable host memory)."""
+    with obs.span("scalars", "kernel", device):
+        return torch.tensor([[dxi, dyi, dzi, 0.0]], dtype=torch.float32,
+                            device=device)
 
 
 def advec_u(u, v, w, dxi: float, dyi: float, dzi: float):

@@ -1,9 +1,10 @@
 """Observability: process metrics, span tracing, and wisdom health.
 
 The port of ``repro.obs``: pure Python, copied with the imports rewritten,
-so a snapshot, a trace and a report are the same bytes in both packages.
+so a snapshot, a trace and a report are the same bytes in both packages;
+only :func:`span`'s profiler sink reads ``torch``.
 
-Zero-dependency telemetry substrate for every loop in the system —
+Telemetry substrate for every loop in the system —
 serving, online tuning, fleet orchestration, sync, transfer — built from
 two primitives and a report:
 
@@ -14,7 +15,9 @@ two primitives and a report:
   ``trace_event`` JSON (open in chrome://tracing or Perfetto);
 * :mod:`.runtime` — the on/off switch: disabled (default) costs one
   global read + branch per instrument site, enabled via
-  :func:`enable` or ``KERNEL_LAUNCHER_OBS=1``;
+  :func:`enable` or ``KERNEL_LAUNCHER_OBS=1``; and :func:`span`, the
+  port's layer-boundary spans, which go to the tracer and to an active
+  ``torch.profiler`` session (``repro_torch.<name>`` ranges);
 * :mod:`.report`  — the wisdom-health report (hit rates, tier breakdown,
   transfer confidence, top missing scenarios) rendered deterministically
   from a snapshot or a saved trace;
@@ -33,7 +36,7 @@ from .metrics import (COUNT_BUCKETS, DEFAULT_BUCKETS_US, SNAPSHOT_VERSION,
 from .report import (ScenarioHealth, fleet_report, render_report,
                      scenario_health, snapshot_from_trace)
 from .runtime import (OBS_ENV, disable, enable, enabled, metrics,
-                      obs_requested, tracer)
+                      obs_requested, span, tracer)
 from .trace import (REQUIRED_EVENT_KEYS, Tracer, load_trace,
                     validate_trace)
 
@@ -45,6 +48,6 @@ __all__ = [
     "ScenarioHealth", "fleet_report", "render_report", "scenario_health",
     "snapshot_from_trace",
     "OBS_ENV", "disable", "enable", "enabled", "metrics", "obs_requested",
-    "tracer",
+    "span", "tracer",
     "REQUIRED_EVENT_KEYS", "Tracer", "load_trace", "validate_trace",
 ]

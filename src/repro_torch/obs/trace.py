@@ -54,7 +54,8 @@ class Tracer:
         self.events: list[dict] = []
         self._tids: dict[int, int] = {}
 
-    def _now_us(self) -> float:
+    def now_us(self) -> float:
+        """The tracer's clock: microseconds since it was made."""
         return round((self._clock() - self._epoch) * 1e6, 3)
 
     def _tid(self) -> int:
@@ -68,23 +69,28 @@ class Tracer:
     def span(self, name: str, cat: str = "repro", **args):
         """Record one complete event around the enclosed work. ``args``
         become the event's ``args`` dict (JSON-safe values only)."""
-        t0 = self._now_us()
+        t0 = self.now_us()
         try:
             yield self
         finally:
-            t1 = self._now_us()
-            self.events.append({
-                "name": name, "cat": cat, "ph": "X",
-                "ts": t0, "dur": round(t1 - t0, 3),
-                "pid": self.pid, "tid": self._tid(),
-                "args": {k: v for k, v in sorted(args.items())},
-            })
+            self.complete(name, cat, t0, **args)
+
+    def complete(self, name: str, cat: str, t0: float, **args) -> None:
+        """Record one complete event that began at ``t0`` (a reading of
+        :meth:`now_us`) and ends now, on the calling thread."""
+        t1 = self.now_us()
+        self.events.append({
+            "name": name, "cat": cat, "ph": "X",
+            "ts": t0, "dur": round(t1 - t0, 3),
+            "pid": self.pid, "tid": self._tid(),
+            "args": {k: v for k, v in sorted(args.items())},
+        })
 
     def instant(self, name: str, cat: str = "repro", **args) -> None:
         """Record a zero-duration marker (promotions, sync failures)."""
         self.events.append({
             "name": name, "cat": cat, "ph": "i", "s": "t",
-            "ts": self._now_us(), "pid": self.pid, "tid": self._tid(),
+            "ts": self.now_us(), "pid": self.pid, "tid": self._tid(),
             "args": {k: v for k, v in sorted(args.items())},
         })
 
@@ -104,7 +110,7 @@ class Tracer:
             raise ValueError("counter event needs at least one series")
         self.events.append({
             "name": name, "cat": cat, "ph": "C",
-            "ts": self._now_us(), "pid": self.pid, "tid": self._tid(),
+            "ts": self.now_us(), "pid": self.pid, "tid": self._tid(),
             "args": args,
         })
 

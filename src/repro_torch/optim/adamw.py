@@ -13,6 +13,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.obs import runtime as obs
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -48,7 +49,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: dict, params) -> tuple:
-        """Returns (new_params, new_state, metrics)."""
+        """Returns (new_params, new_state, metrics), under the span
+        ``optimizer`` (clipping and the moment and parameter passes)
+        unless the state is shapes only."""
+        with obs.span("optimizer", "model", state["count"].device):
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state: dict, params) -> tuple:
         gnorm = torch.zeros((), dtype=torch.float32,
                             device=state["count"].device)
         if self.clip_norm is not None:

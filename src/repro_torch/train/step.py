@@ -19,6 +19,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.trip_count import loop
+from repro_torch.obs import runtime as obs
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import leaves, unflatten
 
@@ -92,16 +93,19 @@ def make_train_step(model, optimizer: AdamW,
             grads, metrics = grad_fn(params, batch)
             return unflatten(params, grads), metrics
         n = next(iter(batch.values())).shape[0] // microbatches
-        acc = [torch.zeros_like(p, dtype=accum_dtype)
-               for p in leaves(params)]
+        with obs.span("accumulate", "model", model.device):
+            acc = [torch.zeros_like(p, dtype=accum_dtype)
+                   for p in leaves(params)]
         for i in loop(microbatches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
             grads, metrics = grad_fn(params, mb)
-            for a, g in zip(acc, grads):
-                a.add_(g.to(accum_dtype))
+            with obs.span("accumulate", "model", model.device):
+                for a, g in zip(acc, grads):
+                    a.add_(g.to(accum_dtype))
             del grads
-        for a in acc:
-            a.div_(microbatches)
+        with obs.span("accumulate", "model", model.device):
+            for a in acc:
+                a.div_(microbatches)
         return unflatten(params, acc), metrics
 
     def train_step(state: TrainState, batch: dict):

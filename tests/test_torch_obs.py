@@ -286,8 +286,8 @@ def test_launch_instrumentation_and_always_on_tier_tally(wisdom_dir):
 
 def test_compile_miss_span_covers_build_and_load(wisdom_dir):
     """A cache miss counts compile.cache{outcome=miss} and observes
-    compile.latency_us; the span's dur covers selection, build, load and
-    launch."""
+    compile.latency_us; the span is the launch's host interval, so its
+    dur covers selection, build and load."""
     reg, tr = runtime.enable()
     k = WisdomKernel(get_kernel("advec_u"), wisdom_dir=wisdom_dir,
                      device_kind="gpu-h100")
@@ -299,8 +299,7 @@ def test_compile_miss_span_covers_build_and_load(wisdom_dir):
         "count"] == 1
     (ev,) = [e for e in tr.events if e["name"] == "launch"]
     st = k.stats[-1]
-    total = (st.select_s + st.compile_s + st.load_s + st.launch_s) * 1e6
-    assert ev["dur"] == pytest.approx(total, abs=1e-2)
+    assert ev["dur"] >= (st.select_s + st.compile_s + st.load_s) * 1e6
     assert ev["args"]["cached"] is False
 
 
