@@ -28,7 +28,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    warps), both dtypes, causal and full, GQA 8/2, S 256 and 200, in the
    config a default launch runs there, through ``ops.attention`` with its
    launches counted, and timed at BH 16 x S 2048 causal beside the plain
-   version and SDPA (its backend printed);
+   version and SDPA (its backend printed); then K4's backward kernel
+   (``flash_attention_bwd``, bfloat16 at D 128) against the plain float32
+   gradient at GQA 8/2 S 200 causal and full and at the training shape
+   BH 64 x BHkv 8 x S 2048 causal, repeated for the same bits, and timed
+   there beside the plain backward and SDPA's backward, in ms and as a
+   share of the bf16 peak;
 3. the quickstart loop: matmul (512, 512, 1024) float32, capture ->
    wall-clock tune (bayes, 20 evaluations) -> relaunch in tier "exact",
    equal to the first launch;
@@ -150,7 +155,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 11. training: (a) codeqwen1.5-7b at full width cut to 2 layers, bf16,
    ``build_model(remat=True)``, ``make_train_step`` with 2 microbatches
    of 2 x 2048 tokens (K4 at BH 64 x S 2048 x D 128 under
-   ``FlashAttentionFn``, forward and remat recompute: 8 calls a step),
+   ``FlashAttentionFn``, forward and remat recompute: 8 calls a step;
+   the backward kernel once a layer and microbatch: 4 a step),
    ``TrainDriver`` for 8 steps with an online tuner ticked on the first
    4, from an empty wisdom dir: each step's loss and seconds, tokens/s
    over steps 5-8, peak memory, one more step under the profiler (device
@@ -161,7 +167,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    ``ops.attention`` (K4 + ``FlashAttentionFn``) and through
    ``ref.attention_ref``, both under autograd, in bfloat16 (wgmma) and
    float32 (mma): output and q/k/v gradients within the LM slice's bf16
-   bound and 1e-3 in f32; (c) two children started together: this script
+   bound and 1e-3 in f32, the backward kernel launched once in bf16 and
+   never in f32; (c) two children started together: this script
    with ``--train-resume-child`` (the same arch reduced to d_model 256, d_head
    128, seq 128, f32, deterministic algorithms and
    ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts: a run killed by
@@ -318,7 +325,8 @@ from repro_torch.fleet import (ControlBus, Coordinator,  # noqa: E402
                                run_local_fleet, seed_demand)
 from repro_torch.fleet.cli import main as fleet_cli  # noqa: E402
 from repro_torch.kernels import (_build, advec_u, diff_uvw,  # noqa: E402
-                                 flash_attention, matmul, ops, ref)
+                                 flash_attention, flash_attention_bwd,
+                                 matmul, ops, ref)
 from repro_torch.kernels._stencil_common import stencil_defines  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch.dryrun import (lower_cell,  # noqa: E402
@@ -469,10 +477,13 @@ TPU_KERNELS = {   # CUDA kernel -> the Pallas call it replaces
     "diff_uvw_single": "src/repro/kernels/diff_uvw.py:126",
     "matmul": "src/repro/kernels/matmul.py:137",
     "flash_attention": "src/repro/kernels/flash_attention.py:123",
+    # no Pallas call: the reference differentiates its plain attention
+    "flash_attention_bwd": None,
 }
 SOURCES = {"advec_u": "advec_u.cu", "diff_uvw_fused": "diff_uvw.cu",
            "diff_uvw_single": "diff_uvw.cu", "matmul": "matmul.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 #: The CUDA kernels each main path must launch.
 LOOP_KERNELS = ("advec_u", "diff_uvw_fused", "diff_uvw_single", "matmul")
 LM_KERNELS = ("flash_attention",)
@@ -760,6 +771,9 @@ def phase_build() -> None:
               for name, c in microhh_tuning_configs()]
     specs += matmul_specs()
     specs += flash_specs() + flash_wide_specs()
+    specs += [(flash_attention_bwd.kernel.source, flash_attention_bwd.defines(
+        get_kernel(name).default_config(), name.endswith("causal")))
+        for name in ("flash_attention_bwd_causal", "flash_attention_bwd_full")]
     specs = list(dict.fromkeys((src, tuple(d)) for src, d in specs))
     secs = _build.build_many(specs)
     print(f"built {len(specs)} libraries with nvcc -gencode "
@@ -1032,6 +1046,89 @@ def phase_wide_flash() -> dict:
     return rows
 
 
+#: The backward kernel's checks: GQA 8/2 at a ragged S, causal and full,
+#: and the training shape (BH 64 over BHkv 8, S 2048, causal), where it is
+#: also timed; each of dq, dk, dv within relative L2 FA_BWD_REL_L2 of the
+#: plain float32 gradient of the same bf16 inputs, its worst row within
+#: FA_BWD_ROW_L2 (tests/test_torch_gpu.py holds the same bounds).
+FA_BWD_CHECKS = [((8, 2, 200, 128), True), ((8, 2, 200, 128), False),
+                 ((64, 8, 2048, 128), True)]
+FA_BWD_REL_L2, FA_BWD_ROW_L2 = 1e-2, 5e-2
+
+
+def fa_bwd_sdpa(q, k, v, do):
+    """SDPA's backward on (BH, S, D) operands, causal, GQA by
+    ``enable_gqa``: the yardstick, never used by the port."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*(t[None] for t in leaves),
+                                         is_causal=True, enable_gqa=True)[0]
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def phase_flash_backward() -> dict:
+    """Phase 2's K4 backward (``flash_attention_bwd``): FA_BWD_CHECKS in
+    the default config, each run twice for the same bits; then timed at
+    the training shape beside the plain backward (the float32 recompute
+    and its autograd, on the same bf16 tensors) and SDPA's backward.
+    Returns the timing row."""
+    t0 = time.perf_counter()
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
+    row = {}
+    for problem, causal in FA_BWD_CHECKS:
+        name = ("flash_attention_bwd_causal" if causal
+                else "flash_attention_bwd_full")
+        b = get_kernel(name)
+        cfg = b.default_config()
+        g = torch.Generator(device="cuda").manual_seed(sum(problem))
+        bh, bhkv, s, d = problem
+        args = [torch.randn(shape, generator=g, device="cuda")
+                .to(torch.bfloat16) for shape in
+                ((bh, s, d), (bhkv, s, d), (bhkv, s, d), (bh, s, d))]
+        want = ref.flash_attention_bwd_ref_factory(causal)(
+            *(t.float() for t in args))
+        n0 = bwd.launches
+        run = b.make(cfg, args_meta(*args))
+        got, again = run(*args), run(*args)
+        torch.cuda.synchronize()
+        check(bwd.launches == n0 + 2, f"{name} {problem}: "
+              f"{bwd.launches - n0} launches, want 2")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{name} {problem}: two runs differ")
+        errs = {}
+        for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+            a, w = a.double(), w.double()
+            errs[grad] = {"rel_l2": float((a - w).norm() / w.norm()),
+                          "row_l2": flash_attention.row_l2_error(a, w),
+                          "max_abs_err": float((a - w).abs().max())}
+            check(errs[grad]["rel_l2"] <= FA_BWD_REL_L2
+                  and errs[grad]["row_l2"] <= FA_BWD_ROW_L2,
+                  f"{name} {problem} {grad}: {errs[grad]}")
+        print(f"check {name} {problem} (BH, BHkv, S, D) bfloat16 vs the "
+              f"plain float32 gradient {json.dumps(errs)} (tol rel L2 "
+              f"{FA_BWD_REL_L2:g}, row {FA_BWD_ROW_L2:g}); two runs "
+              f"bit-identical ok config={json.dumps(cfg)}", flush=True)
+        if s != 2048:
+            continue
+        plain = ref.flash_attention_bwd_ref_factory(causal)
+        row = {"kernel": "flash_attention_bwd", "shape": list(problem),
+               "dtype": "bfloat16", "config": cfg,
+               "tuned_ms": time_ms(lambda: run(*args)),
+               "plain_ms": time_ms(lambda: plain(*args), reps=3),
+               "library_ms": time_ms(fa_bwd_sdpa(*args)),
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+        row["bound_ms"], row["bound_by"] = bound(name, problem, "bfloat16",
+                                                 cfg)
+        row["bf16_peak_share"] = (
+            b.make_workload(cfg, problem, "bfloat16").flops
+            / (row["tuned_ms"] * 1e-3) / H100.flops_bf16)
+        print("time " + json.dumps(row), flush=True)
+        del args, want, got, again
+    torch.cuda.empty_cache()
+    print(f"phase 2 (K4's backward) took {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return row
+
+
 def phase_main_path(wisdom: Path) -> tuple[dict, dict, dict]:
     """Phases 3-4, their wisdom kept under ``wisdom``. Returns the two
     examples' results and the CUDA kernels' launches."""
@@ -1164,8 +1261,9 @@ def phase_telemetry(reg, tr, pr, stats: Counter, paths: list,
         check(got == want, f"{builder}: launch spans {dict(got)}, "
               f"profiles {dict(want)}")
         seen.update(cuda_kernel(builder, p.config) for p in profs)
-    check(seen >= set(TPU_KERNELS),
-          f"no launch span for {sorted(set(TPU_KERNELS) - seen)}")
+    want_seen = set(LOOP_KERNELS + LM_KERNELS)   # phases 3-5 run no backward
+    check(seen >= want_seen,
+          f"no launch span for {sorted(want_seen - seen)}")
     arenas = sum(e["name"] == "serve.arena" for e in doc["traceEvents"])
     check(arenas == generations,
           f"{arenas} serve.arena spans, {generations} generations")
@@ -2595,8 +2693,10 @@ def phase_fleet(tmp: Path, microhh_wisdom: Path, lm_wisdom: Path) -> dict:
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 4, 2048, 2
 TRAIN_STEPS, TRAIN_WARMUP = 8, 4
 #: K4 launches a step: each layer's forward and its remat recompute, in
-#: each microbatch.
+#: each microbatch; the backward kernel's: each layer's backward in each
+#: microbatch.
 TRAIN_K4_PER_STEP = 2 * TRAIN_LAYERS * TRAIN_MICRO
+TRAIN_BWD_PER_STEP = TRAIN_LAYERS * TRAIN_MICRO
 #: (b) float32 output and gradients (K4's mma body) against the plain
 #: version's autograd: rtol = 1e-3, atol = 1e-3 x max|ref|, as phase 5a
 #: holds f32 prefill logits; bf16 takes the LM slice's LM_BF16_TOL. Both
@@ -2631,6 +2731,7 @@ def train_full_width(tmp: Path) -> tuple:
     width; returns its readings, the model, the final state and the
     dataset ((b) reads the last three)."""
     fa = _build.CUDA_KERNELS["flash_attention"]
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
     kern = ops.fa_causal_kernel
     cfg = replace(get_arch(LM_ARCH), n_layers=TRAIN_LAYERS)
     n_params = n_elements(build_model(cfg, device="meta").init())
@@ -2670,7 +2771,8 @@ def train_full_width(tmp: Path) -> tuple:
             run = driver.run(torch.Generator(device="cuda").manual_seed(0))
         finally:
             kern.attach_online(None)
-        out["launches"] = {"flash_attention": fa.launches}
+        out["launches"] = {"flash_attention": fa.launches,
+                           "flash_attention_bwd": bwd.launches}
         out["by_body"] = dict(flash_attention.BODY_LAUNCHES)
         stats = kern.stats[n0:]
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2693,6 +2795,10 @@ def train_full_width(tmp: Path) -> tuple:
           f"through the WisdomKernel, want {want}")
     check(out["launches"]["flash_attention"] >= want,
           f"train (a) counted {out['launches']} K4 launches, want >= {want}")
+    want_bwd = TRAIN_BWD_PER_STEP * TRAIN_STEPS
+    check(out["launches"]["flash_attention_bwd"] == want_bwd,
+          f"train (a) counted {out['launches']['flash_attention_bwd']} "
+          f"backward launches, want {want_bwd}")
     steady = [h["s"] for h in hist[TRAIN_WARMUP:]]
     out |= {"losses": losses, "step_s": [h["s"] for h in hist],
             "tok_s_steps_5_8": TRAIN_BATCH * TRAIN_SEQ * len(steady)
@@ -2738,7 +2844,9 @@ def train_full_width(tmp: Path) -> tuple:
           f"{json.dumps(dict(tiers))}, {out['launches']['flash_attention']} "
           f"launches ({out['extra_k4_launches']} beyond the calls: the "
           f"promotion gate's), by body {json.dumps(out['by_body'])}; online "
-          f"{json.dumps(out['online'])}", flush=True)
+          f"{json.dumps(out['online'])}; the backward kernel "
+          f"{out['launches']['flash_attention_bwd']} launches "
+          f"({TRAIN_BWD_PER_STEP} a step at BH {problem[0]})", flush=True)
     print(f"train (a) final checkpoint {out['ckpt']['gb']:.2f} GB, "
           f"{out['ckpt']['leaves']} leaves: saved in "
           f"{out['ckpt']['save_s']:.1f} s, restored in "
@@ -2752,6 +2860,7 @@ def train_gradients(model, params, ds) -> dict:
     ``ref.attention_ref``, both under autograd; q/k/v gradients compared,
     in bfloat16 (wgmma body) and float32 (mma body)."""
     fa = _build.CUDA_KERNELS["flash_attention"]
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
     cfg = model.cfg
     b = TRAIN_BATCH // TRAIN_MICRO
     tokens = move_batch(ds.batch(0), "cuda")["tokens"][:b]
@@ -2774,7 +2883,11 @@ def train_gradients(model, params, ds) -> dict:
                if n != bodies0.get(x, 0)}
         check(ran == {body: 1}, f"train (b) {dtype} ran {ran}, want one "
               f"{body} launch")
+        n_bwd = bwd.launches
         o.backward(ct)
+        check(bwd.launches - n_bwd == (dtype == "bfloat16"),
+              f"train (b) {dtype}: {bwd.launches - n_bwd} backward kernel "
+              f"launches")
         want = [t.clone().requires_grad_(True) for t in (q, k, v)]
         w = ref.attention_ref(*want, causal=True)
         w.backward(ct)
@@ -2790,8 +2903,9 @@ def train_gradients(model, params, ds) -> dict:
             check(ok, f"train (b) {dtype} {name}: {e}")
         out[dtype] = errs
         print(f"train (b) {dtype} ({body} body), BH {q.shape[0] * q.shape[1]}"
-              f" x S {TRAIN_SEQ} x D {cfg.d_head}, causal: K4 + autograd vs "
-              f"the plain version's autograd {json.dumps(errs)} ok",
+              f" x S {TRAIN_SEQ} x D {cfg.d_head}, causal: K4 + "
+              f"{'its backward kernel' if dtype == 'bfloat16' else 'autograd'}"
+              f" vs the plain version's autograd {json.dumps(errs)} ok",
               flush=True)
         del got, want, o, w
     return out
@@ -3852,25 +3966,34 @@ def launch_debug_cell(name: str, mesh) -> dict:
     (K4 through its workload hook), then timed after that warm-up."""
     cfg, shape = debug_cell(name)
     snap = k4_snapshot()
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
+    bwd0 = bwd.launches
     rec = lower_cell(LM_ARCH, name, mesh, verbose=False, cfg=cfg,
                      shape=shape, seed=LAUNCH_SEED)
     n_k4, by = k4_since(snap)
+    n_bwd = bwd.launches - bwd0
     label = (f"debug mesh {LM_ARCH} x {name} ({cfg.n_layers} layers, "
              f"batch {shape.global_batch} x {shape.seq})")
     check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
     ratio = flops_in_bound(rec, label)
-    hooked = sum(rec["kernel_launches"].values())
+    hooked = sum(n for b, n in rec["kernel_launches"].items()
+                 if b in ("flash_attention_causal", "flash_attention_full"))
     if shape.kind != "decode":
         check(n_k4 > 0, f"{label}: K4 was not launched")
     # the counted run and the timed run launch K4 alike
     check(n_k4 == 2 * hooked, f"{label}: K4 launched {n_k4} times over two "
           f"runs, its workload hook counted {hooked} in one")
+    hooked_bwd = sum(n for b, n in rec["kernel_launches"].items()
+                     if b.startswith("flash_attention_bwd_"))
+    check(n_bwd == 2 * hooked_bwd and (n_bwd > 0) == (shape.kind == "train"),
+          f"{label}: the backward kernel launched {n_bwd} times over two "
+          f"runs, its workload hook counted {hooked_bwd} in one")
     if "loss" in rec:
         check(math.isfinite(rec["loss"]), f"{label}: loss {rec['loss']}")
     roof = rec["roofline"]
     ideal_s = roof["model_flops"] / HW().peak_flops_bf16
-    rec |= {"k4_launches": n_k4, "k4_by_body": {" ".join(k): v
-                                                 for k, v in by.items()},
+    rec |= {"k4_launches": n_k4, "bwd_launches": n_bwd,
+            "k4_by_body": {" ".join(k): v for k, v in by.items()},
             "ideal_s": ideal_s, "flops_ratio": ratio}
     print(f"{label} on {nvidia_smi()}: counted flops "
           f"{rec['hlo_walk']['flops']:.4g} ({ratio:.3f} x model_flops "
@@ -3883,7 +4006,7 @@ def launch_debug_cell(name: str, mesh) -> dict:
           f"{ideal_s / rec['step_s']:.4f} of the step; peak "
           f"{rec['peak_bytes'] / 1e9:.2f} GB; K4 {n_k4} launches over the "
           f"two runs {json.dumps(rec['k4_by_body'])}, {hooked} through its "
-          f"workload hook in the counted run"
+          f"workload hook in the counted run; its backward {n_bwd} launches"
           + (f"; loss {rec['loss']:.4f}" if "loss" in rec else ""),
           flush=True)
     free_memory()
@@ -3912,7 +4035,7 @@ def phase_launch(tmp: Path, dry_cells: tuple) -> dict:
     pool, dry = dry_cells
     out = {"specs": launch_specs_check(), "dry": {}, "debug": {}}
     release()
-    total, by = 0, Counter()
+    total, total_bwd, by = 0, 0, Counter()
     with quickstart._env(**{WISDOM_DIR_ENV: str(tmp / "launch-wisdom")}):
         ops.reload_wisdom()
         mesh = make_debug_mesh(device="cuda")
@@ -3920,6 +4043,7 @@ def phase_launch(tmp: Path, dry_cells: tuple) -> dict:
             rec = launch_debug_cell(name, mesh)
             out["debug"][name] = rec
             total += rec["k4_launches"]
+            total_bwd += rec["bwd_launches"]
             by += Counter(rec["k4_by_body"])
         mesh = make_fake_mesh((1, 1), ("data", "model"))
         for name, rec in out["debug"].items():
@@ -3940,7 +4064,8 @@ def phase_launch(tmp: Path, dry_cells: tuple) -> dict:
         rec = launch_dry_cell(future.result())
         out["dry"][f"{rec['arch']} {rec['shape']} {rec['mesh_tag']}"] = rec
     pool.shutdown()
-    out["launches"] = {"flash_attention": total}
+    out["launches"] = {"flash_attention": total,
+                       "flash_attention_bwd": total_bwd}
     out["by_body"] = dict(by)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14 (launcher and roofline) took {out['seconds']:.1f}s",
@@ -3961,6 +4086,8 @@ def main() -> int:
     phase_build()
     headline = phase_kernels()
     wide = phase_wide_flash()
+    bwd_row = phase_flash_backward()
+    headline["flash_attention_bwd"] = bwd_row["max_abs_err"]
     print(f"[{time.perf_counter() - t0:.0f}s] kernels agree with their "
           f"plain versions", flush=True)
     with tempfile.TemporaryDirectory(prefix="kl-smoke-") as tmp:
@@ -3993,6 +4120,7 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f}s] LM path done", flush=True)
         rows = phase_times(qs, mh)
         rows[("flash_attention", 2048, "bfloat16")] = phase_lm_times(lm)
+        rows[("flash_attention_bwd", 2048, "bfloat16")] = bwd_row
         t7 = time.perf_counter()
         phase_telemetry(reg, tr, pr, stats, paths, lm["serve"]["cohorts"])
         phase_export(current_device_kind(), wisdom, Path(tmp) / "generated")
@@ -4008,6 +4136,8 @@ def main() -> int:
               flush=True)
         for name, n in train["launches"].items():
             check(n > 0, f"{name} was not launched on the training path")
+        counts["flash_attention_bwd"] = train["launches"][
+            "flash_attention_bwd"]
         zoo = phase_zoo(Path(tmp))
         print(f"zoo-path launches: {json.dumps(zoo['launches'])}; "
               f"flash_attention by body: {json.dumps(zoo['by_body'])}",
@@ -4026,11 +4156,13 @@ def main() -> int:
         for name, n in launch["launches"].items():
             check(n > 0, f"{name} was not launched on the launcher's path")
             counts[name] += n
+        by["flash_attention_bwd"] = {"bfloat16":
+                                     counts["flash_attention_bwd"]}
         for key, n in launch["by_body"].items():
             by["flash_attention"][key] = by["flash_attention"].get(key, 0) + n
     kernels = []
     for name in TPU_KERNELS:
-        key = ((name, 2048, "bfloat16") if name == "flash_attention"
+        key = ((name, 2048, "bfloat16") if name.startswith("flash_attention")
                else (name, 512, "float32"))
         row = rows[key]
         kernels.append({

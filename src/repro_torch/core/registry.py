@@ -17,6 +17,7 @@ _BUILTIN_KERNEL_MODULES = (
     "repro_torch.kernels.advec_u",
     "repro_torch.kernels.diff_uvw",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention_bwd",
     "repro_torch.kernels.matmul",
 )
 

@@ -59,6 +59,7 @@ from repro_torch.core.builder import dtype_name, probe_array
 from repro_torch.core.device import GPU_H100
 from repro_torch.obs import runtime as obs
 
+from . import flash_attention_bwd as _bwd
 from . import ref as _ref
 from ._build import CudaKernel
 
@@ -252,34 +253,40 @@ def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention under autograd: the forward is ``kernel``'s launch
+    """Flash attention under autograd. The forward is ``kernel``'s launch
     (a :class:`WisdomKernel` of either builder, so selection, online
-    trials, capture and telemetry see it as any launch), the backward the
-    gradient of the plain version (``ref.attention_ref`` over the
-    flattened heads) recomputed from the saved inputs. The reference has
-    no backward kernel either: its training forward differentiates the
-    same plain function. On CPU tensors ``kernel`` runs the plain version,
-    so the host exercises the same wiring as the card.
+    trials, capture and telemetry see it as any launch). The backward is
+    ``bwd_kernel``'s launch (a :class:`WisdomKernel` of a
+    ``flash_attention_bwd`` builder: the hand-written backward kernel)
+    where :func:`flash_attention_bwd.takes` the tensors, bfloat16 at head
+    dim 128; otherwise the gradient of the plain version
+    (``ref.flash_attention_bwd_ref_factory``: ``ref.attention_ref`` over
+    the flattened heads, recomputed from the saved inputs). The reference
+    has no backward kernel: its training forward differentiates the plain
+    function. On CPU tensors both kernels run their plain versions, so the
+    host exercises the same wiring as the card.
 
     ``ctx`` saves the inputs q, k, v, never the kernel's output, so under
     ``torch.utils.checkpoint`` a recompute launches the kernel again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kernel, causal: bool):
+    def forward(ctx, q, k, v, kernel, bwd_kernel, causal: bool):
         ctx.save_for_backward(q, k, v)
+        ctx.bwd_kernel = bwd_kernel
         ctx.causal = causal
         return kernel(q, k, v)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        with obs.span("attn_backward", "model", grad_out.device), \
-                torch.enable_grad():
-            inputs = [t.detach().requires_grad_(True)
-                      for t in ctx.saved_tensors]
-            out = _ref.flash_attention_ref_factory(ctx.causal)(*inputs)
-            dq, dk, dv = torch.autograd.grad(out, inputs, grad_out)
-        return dq, dk, dv, None, None
+        q, k, v = ctx.saved_tensors
+        with obs.span("attn_backward", "model", grad_out.device):
+            if _bwd.takes(q):
+                dq, dk, dv = ctx.bwd_kernel(q, k, v, grad_out.contiguous())
+            else:
+                dq, dk, dv = _ref.flash_attention_bwd_ref_factory(
+                    ctx.causal)(q, k, v, grad_out)
+        return dq, dk, dv, None, None, None
 
 
 def through_flash_fn(out: torch.Tensor) -> bool:

@@ -17,6 +17,7 @@ from repro_torch.obs import runtime as obs
 from . import advec_u as _advec_mod
 from . import diff_uvw as _diff_mod
 from . import flash_attention as _fa_mod
+from . import flash_attention_bwd as _fa_bwd_mod
 from . import matmul as _mm_mod
 from . import ref, sharded
 
@@ -25,9 +26,12 @@ diff_uvw_kernel = WisdomKernel(_diff_mod.builder)
 matmul_kernel = WisdomKernel(_mm_mod.builder)
 fa_causal_kernel = WisdomKernel(_fa_mod.causal_builder)
 fa_full_kernel = WisdomKernel(_fa_mod.full_builder)
+fa_bwd_causal_kernel = WisdomKernel(_fa_bwd_mod.causal_builder)
+fa_bwd_full_kernel = WisdomKernel(_fa_bwd_mod.full_builder)
 
 _ALL_KERNELS = (advec_u_kernel, diff_uvw_kernel, matmul_kernel,
-                fa_causal_kernel, fa_full_kernel)
+                fa_causal_kernel, fa_full_kernel, fa_bwd_causal_kernel,
+                fa_bwd_full_kernel)
 
 
 def reload_wisdom() -> None:
@@ -83,8 +87,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     version for CPU tensors); the rest run the full-featured plain
     ``ref.attention_ref`` on the tensors' device, as the reference runs its
     oracle for them. The flash call goes through
-    ``flash_attention.FlashAttentionFn``: the kernel forward, the plain
-    version's gradient backward.
+    ``flash_attention.FlashAttentionFn``: the kernel forward; the backward
+    kernel (``flash_attention_bwd``) for bfloat16 at head dim 128, the
+    plain version's gradient for the rest.
 
     On ``DTensor``s (a step under a device mesh) each rank attends its own
     shards where q, k and v split the batch and heads alike
@@ -104,6 +109,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     qf = q.reshape(B * Hq, S, D).contiguous()
     kf = k.reshape(B * Hkv, S, D).contiguous()
     vf = v.reshape(B * Hkv, S, D).contiguous()
-    kernel = fa_causal_kernel if causal else fa_full_kernel
-    of = _fa_mod.FlashAttentionFn.apply(qf, kf, vf, kernel, causal)
+    kernel, bwd = ((fa_causal_kernel, fa_bwd_causal_kernel) if causal
+                   else (fa_full_kernel, fa_bwd_full_kernel))
+    of = _fa_mod.FlashAttentionFn.apply(qf, kf, vf, kernel, bwd, causal)
     return of.reshape(B, Hq, S, D)

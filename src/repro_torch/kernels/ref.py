@@ -292,3 +292,18 @@ def flash_attention_ref_factory(causal: bool):
         return o[:, 0]
 
     return flash_attention_ref
+
+
+def flash_attention_bwd_ref_factory(causal: bool):
+    """Plain version of the flash backward kernel: (dq, dk, dv) of the
+    plain forward (:func:`flash_attention_ref_factory`) recomputed from q,
+    k and v, by autograd against the output's gradient ``do``. The
+    gradients come in the inputs' dtype."""
+    forward = flash_attention_ref_factory(causal)
+
+    def flash_attention_bwd_ref(q, k, v, do):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(forward(*inputs), inputs, do)
+
+    return flash_attention_bwd_ref

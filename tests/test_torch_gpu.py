@@ -863,11 +863,13 @@ def test_flash_gradient_matches_plain_autograd_on_card(cuda_device,
                                                        body):
     """``ops.attention`` on CUDA tensors that want a gradient: its output
     carries ``FlashAttentionFn``, K4 launches once in the body the dtype
-    selects, and the output and the q, k, v gradients match the plain
-    version's autograd on the same tensors. bfloat16: max abs <= 0.05 x
-    max(1, max|ref|) and relative L2 <= 0.05 (the LM slice's bound);
-    float32: rtol = 1e-3, atol = 1e-3 x max|ref|. A K4 output without a
-    gradient fails the first assertion or leaves q.grad None."""
+    selects, the backward launches the backward kernel once in bfloat16
+    and never in float32 (the plain recompute), and the output and the q,
+    k, v gradients match the plain version's autograd on the same tensors.
+    bfloat16: max abs <= 0.05 x max(1, max|ref|) and relative L2 <= 0.05
+    (the LM slice's bound); float32: rtol = 1e-3, atol = 1e-3 x max|ref|.
+    A K4 output without a gradient fails the first assertion or leaves
+    q.grad None."""
     from repro_torch.kernels import ops
     g = torch.Generator(device=cuda_device).manual_seed(3)
     dt = getattr(torch, dtype)
@@ -877,14 +879,16 @@ def test_flash_gradient_matches_plain_autograd_on_card(cuda_device,
     ct = torch.randn((b, hq, s, d), generator=g, device=cuda_device).to(dt)
     got = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fa = _build.CUDA_KERNELS["flash_attention"]
-    n0, body0 = fa.launches, fa.body_launches.get(body, 0)
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
+    n0, body0, b0 = fa.launches, fa.body_launches.get(body, 0), bwd.launches
     out = ops.attention(*got, causal=True)
     assert flash_attention.through_flash_fn(out)
     assert fa.launches == n0 + 1 and fa.body_launches[body] == body0 + 1
     out.backward(ct)
     want = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref.attention_ref(*want, causal=True).backward(ct)
-    assert fa.launches == n0 + 1          # the backward runs the plain one
+    assert fa.launches == n0 + 1          # the backward launches no forward
+    assert bwd.launches == b0 + (dtype == "bfloat16")
     pairs = [(out.detach(), ref.attention_ref(q, k, v, causal=True))]
     pairs += [(a.grad, r.grad) for a, r in zip(got, want)]
     for a, r in pairs:
@@ -895,6 +899,77 @@ def test_flash_gradient_matches_plain_autograd_on_card(cuda_device,
             assert float((a - r).norm() / r.norm()) <= 0.05
         else:
             torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-3 * top)
+
+
+#: The flash backward's shapes on the card: the training cell's (BH 64,
+#: BHkv 8, S 2048) and a ragged S no tile divides, at GQA 8/2.
+FA_BWD_SHAPES = [(64, 8, 2048, 128), (8, 2, 200, 128)]
+
+
+def _fa_bwd_case(cuda_device, problem, causal):
+    """bfloat16 q, k, v, dO on the card and the plain version's float32
+    autograd gradients of the same bfloat16 values."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(problem))
+    bh, bhkv, s, d = problem
+    args = [torch.randn(shape, generator=g, device=cuda_device)
+            .to(torch.bfloat16) for shape in
+            ((bh, s, d), (bhkv, s, d), (bhkv, s, d), (bh, s, d))]
+    want = ref.flash_attention_bwd_ref_factory(causal)(
+        *(t.float() for t in args))
+    return args, want
+
+
+@pytest.mark.parametrize("problem", FA_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_float32_autograd_on_card(cuda_device,
+                                                          problem, causal):
+    """The backward kernel in its default config and, on the ragged shape,
+    three sampled configs: each of dq, dk and dv within relative L2 1e-2 of
+    float32 autograd on the same bfloat16 inputs (P and dS round to bf16
+    before their products: ~3e-3), its worst row (``row_l2_error``) within
+    5e-2; one launch counted a call; and a second call gives the same bits
+    (no atomics)."""
+    b = get_kernel("flash_attention_bwd_causal" if causal
+                   else "flash_attention_bwd_full")
+    args, want = _fa_bwd_case(cuda_device, problem, causal)
+    configs = [b.default_config()]
+    if problem[2] == 200:
+        rng = np.random.default_rng(2)
+        space = list(b.space.enumerate())
+        configs += [space[i] for i in rng.choice(len(space), 3,
+                                                 replace=False)]
+    bwd = _build.CUDA_KERNELS["flash_attention_bwd"]
+    for cfg in configs:
+        fn = b.make(cfg, args_meta(*args))
+        n0 = bwd.launches
+        got = fn(*args)
+        again = fn(*args)
+        torch.cuda.synchronize()
+        assert bwd.launches == n0 + 2
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            a64, w64 = a.double(), w.double()
+            rel = float((a64 - w64).norm() / w64.norm())
+            row = flash_attention.row_l2_error(a64, w64)
+            assert rel <= 1e-2 and row <= 5e-2, (cfg, name, rel, row)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), cfg
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    """float32 operands, another head dim or an operand off a 16-byte
+    boundary: the wrapper raises before any launch."""
+    b = get_kernel("flash_attention_bwd_causal")
+    args, _ = _fa_bwd_case(cuda_device, (4, 2, 128, 128), True)
+    run = b.make(b.default_config(), args_meta(*args))
+    n0 = _build.CUDA_KERNELS["flash_attention_bwd"].launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        run(*(t.float() for t in args))
+    with pytest.raises(ValueError, match="head dim 128"):
+        run(*(t[..., :64].contiguous() for t in args))
+    off = [torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda_device)
+           [1:1 + t.numel()].view(t.shape) for t in args]
+    with pytest.raises(ValueError, match="16-byte"):
+        run(*off)
+    assert _build.CUDA_KERNELS["flash_attention_bwd"].launches == n0
 
 
 def _small_train(device, remat=True):
