@@ -28,7 +28,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    warps), both dtypes, causal and full, GQA 8/2, S 256 and 200, in the
    config a default launch runs there, through ``ops.attention`` with its
    launches counted, and timed at BH 16 x S 2048 causal beside the plain
-   version and SDPA (its backend printed); then K4's backward kernel
+   version and SDPA (its backend printed); then K4 at MLA's q/k 192 and
+   v 128 with deepseek-v2-lite's YaRN softmax scale, through
+   ``ops.attention`` at the benchmark cell's BH 128 x S 2048, 64 x 4096
+   and 16 x 16384 (one wgmma launch a call, counted), against its plain
+   version at the same scale, and timed at the first beside the plain
+   version, SDPA and the workload hook's bound (the ``kernels`` line's
+   ``flash_attention_d192v128_bfloat16``); then K4's backward kernel
    (``flash_attention_bwd``, bfloat16 at D 128) against the plain float32
    gradient at GQA 8/2 S 200 causal and full and at the training shape
    BH 64 x BHkv 8 x S 2048 causal, repeated for the same bits, and timed
@@ -199,9 +205,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
    2048 (K4 +32 each), 32 decode steps, the 512 + 2 check, and K4 in the
    first self layer at its GQA 32/8 shape against its plain version; (c)
    deepseek-v2-236b at full width cut to 3 layers (the dense MLA layer 0
-   and 2 MoE+MLA layers, 9.33 B parameters): prefill 2 x 2048 (no K4:
-   MLA's attention is plain), 16 absorbed decode steps, ``ServeEngine``
-   picking cohort mode for 4 requests, and the no-drop check;
+   and 2 MoE+MLA layers, 9.33 B parameters): prefill 2 x 2048 (K4 +3
+   launches each, at MLA's q/k 192 and v 128, all wgmma), 16 absorbed
+   decode steps, ``ServeEngine``
+   picking cohort mode for 4 requests, and the no-drop check; (d)
+   deepseek-v2-lite at full width cut to its dense layer and one dropless
+   MoE layer: prefill 4 x 2048 three times (K4 +2 launches each, at q/k
+   192 and v 128 with the YaRN scale, all wgmma), the MoE layer's output
+   on its own input against the experts in float32 on exactly their
+   routed tokens (every pair routed, at most 1 % of rows off by more
+   than 5 %);
 13. the recurrent and encoder-decoder families at full width and depth,
    one model at a time, each freed before the next, with seeded random
    bf16 weights whose recurrent constants are redrawn (the reference
@@ -337,6 +350,7 @@ from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
 from repro_torch.launch.shapes import (SHAPES, cell_skip_reason,  # noqa: E402
                                        input_specs, params_shape)
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models import mla as mla_module  # noqa: E402
 from repro_torch.models import mamba as mamba_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.common import apply_norm, cdt  # noqa: E402
@@ -471,6 +485,14 @@ FA_HEAD_DIM = 128
 FA_WIDE_DIMS = (384, 512)
 FA_WIDE_SEQ = (256, 200)
 FA_WIDE_TIMED = (16, 16, 2048)
+#: K4 at MLA's heads (q/k 192, v 128) with the YaRN softmax scale of
+#: FA_MLA_ARCH, at the (BH, S) of the deepseek-v2-lite.prefill-16k cell's
+#: calls (8 x 2048, 4 x 4096 and 1 x 16384 prompts of 16 heads), and
+#: timed at the first; the plain version runs FA_MLA_PLAIN_ELEMS score
+#: elements (about 4 GB in float32) at a time.
+FA_MLA_ARCH = "deepseek-v2-lite"
+FA_MLA_SHAPES = ((128, 2048), (64, 4096), (16, 16384))
+FA_MLA_PLAIN_ELEMS = 1 << 30
 TPU_KERNELS = {   # CUDA kernel -> the Pallas call it replaces
     "advec_u": "src/repro/kernels/advec_u.py:91",
     "diff_uvw_fused": "src/repro/kernels/diff_uvw.py:111",
@@ -770,7 +792,7 @@ def phase_build() -> None:
     specs += [(f"{name}.cu", stencil_defines(c))
               for name, c in microhh_tuning_configs()]
     specs += matmul_specs()
-    specs += flash_specs() + flash_wide_specs()
+    specs += flash_specs() + flash_wide_specs() + flash_mla_specs()
     specs += [(flash_attention_bwd.kernel.source, flash_attention_bwd.defines(
         get_kernel(name).default_config(), name.endswith("causal")))
         for name in ("flash_attention_bwd_causal", "flash_attention_bwd_full")]
@@ -821,6 +843,16 @@ def flash_wide_specs() -> list:
                     cfg, name == "flash_attention_causal", d,
                     flash_attention.choose_body(dtype, d, cfg)))
     return [("flash_attention.cu", d) for d in out]
+
+
+def flash_mla_specs() -> list:
+    """The flash library :func:`phase_mla_flash` launches: the default
+    causal config at q/k 192, v 128 in bfloat16."""
+    cfg = kernel_cfg("flash_attention_causal", {})
+    (d, dv), = flash_attention.SPLIT_DIMS
+    return [("flash_attention.cu", flash_attention.defines(
+        cfg, True, d, flash_attention.choose_body("bfloat16", d, cfg, dv),
+        dv))]
 
 
 def matmul_specs() -> list:
@@ -1044,6 +1076,95 @@ def phase_wide_flash() -> dict:
     print(f"phase 2 (K4 at D 384 and 512) took "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return rows
+
+
+def phase_mla_flash() -> dict:
+    """K4 at MLA's heads (phase 2's last part): at each FA_MLA_SHAPES
+    shape, ``ops.attention`` on (B, 16, S, 192) queries and keys and
+    (B, 16, S, 128) values with FA_MLA_ARCH's softmax scale, the launch
+    counts zeroed just before and read just after (one launch a call, in
+    the wgmma body), its output held against the plain version
+    (``ref.flash_attention_ref_factory``, the same scale) a few heads at a
+    time; then the kernel timed at the first shape against its plain
+    version and SDPA (the same scale), beside the workload hook's bound.
+    Returns the timed row."""
+    t0 = time.perf_counter()
+    arch = get_arch(FA_MLA_ARCH)
+    h, dtype = arch.n_heads, "bfloat16"
+    d, dv = arch.mla.d_nope + arch.mla.d_rope, arch.mla.d_v
+    scale = mla_module.softmax_scale(arch)
+    fa = _build.CUDA_KERNELS["flash_attention"]
+    plain = ref.flash_attention_ref_factory(True)
+    cfg = kernel_cfg("flash_attention_causal", {})
+    errs = []
+    with tempfile.TemporaryDirectory(prefix="kl-mla-") as wdir, \
+            quickstart._env(**{WISDOM_DIR_ENV: wdir}):
+        ops.reload_wisdom()
+        for bh, s in FA_MLA_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(bh + s)
+            q, k = (torch.randn((bh // h, h, s, d), generator=g,
+                                device="cuda").to(DTYPES[dtype])
+                    for _ in range(2))
+            v = torch.randn((bh // h, h, s, dv), generator=g,
+                            device="cuda").to(DTYPES[dtype])
+            _build.reset_launch_counts()
+            got = ops.attention(q, k, v, causal=True, scale=scale)
+            torch.cuda.synchronize()
+            launches, by = fa.launches, dict(fa.body_launches)
+            check(launches == 1 and by == {"wgmma": 1},
+                  f"ops.attention at q/k {d}, v {dv}, BH {bh} x S {s}: "
+                  f"{launches} K4 launches {by}, want 1 in the wgmma body")
+            got = got.reshape(bh, s, dv)
+            qf, kf, vf = (t.reshape(bh, s, -1) for t in (q, k, v))
+            step = max(1, FA_MLA_PLAIN_ELEMS // (s * s))
+            err = {"bh": bh, "s": s, "max_abs_err": 0.0, "row_l2_err": 0.0}
+            for i in range(0, bh, step):
+                want = plain(qf[i:i + step], kf[i:i + step],
+                             vf[i:i + step], scale=scale)
+                out = verify_outcome(got[i:i + step], want, dtype)
+                check(out.ok, f"K4 q/k {d} v {dv} BH {bh} x S {s} heads "
+                      f"{i}..{i + step}: {out.error}")
+                err["max_abs_err"] = max(err["max_abs_err"], out.max_err)
+                err["row_l2_err"] = max(err["row_l2_err"],
+                                        flash_attention.row_l2_error(
+                                            got[i:i + step], want))
+                del want
+            check(err["row_l2_err"] <= flash_attention.ROW_L2_TOL[dtype],
+                  f"K4 q/k {d} v {dv} BH {bh} x S {s}: row relative L2 "
+                  f"error {err['row_l2_err']:.3e} > "
+                  f"{flash_attention.ROW_L2_TOL[dtype]}")
+            errs.append(err)
+            print(f"check flash_attention q/k {d} v {dv} {dtype} scale "
+                  f"{scale:.6f} BH {bh} x S {s} causal through "
+                  f"ops.attention: 1 wgmma launch, max_abs_err="
+                  f"{err['max_abs_err']:.3e} {tolerance(dtype)} row_l2_err="
+                  f"{err['row_l2_err']:.3e} (tol "
+                  f"{flash_attention.ROW_L2_TOL[dtype]:g}) ok", flush=True)
+            if (bh, s) == FA_MLA_SHAPES[0]:
+                timed_args = (qf, kf, vf, q, k, v)
+            del got, qf, kf, vf, q, k, v
+        qf, kf, vf, q, k, v = timed_args
+        bh, s = FA_MLA_SHAPES[0]
+        row = {"head_dim": d, "v_dim": dv, "dtype": dtype, "scale": scale,
+               "shape": [bh, bh, s, d, dv], "config": cfg, "launches": 1,
+               "max_abs_err": max(e["max_abs_err"] for e in errs),
+               "row_l2_err": max(e["row_l2_err"] for e in errs),
+               "ms": time_ms(lambda: flash_attention.launch(
+                   cfg, qf, kf, vf, scale, causal=True)),
+               "plain_ms": time_ms(lambda: plain(qf, kf, vf, scale=scale),
+                                   reps=3),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, scale=scale)),
+               "sdpa_backend": sdpa_backend(qf, kf, vf)}
+        row["bound_ms"], row["bound_by"] = bound(
+            "flash_attention_causal", (bh, bh, s, d, dv), dtype, cfg)
+        print("time mla " + json.dumps(row), flush=True)
+        del timed_args, qf, kf, vf, q, k, v
+        ops.reload_wisdom()
+    torch.cuda.empty_cache()
+    print(f"phase 2 (K4 at q/k {d}, v {dv}) took "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return row
 
 
 #: The backward kernel's checks: GQA 8/2 at a ragged S, causal and full,
@@ -3050,6 +3171,18 @@ ZOO_BATCH, ZOO_SEQ, ZOO_DECODE = 4, 2048, 32
 #: deepseek-v2-236b at full width, cut in depth to its dense MLA layer 0
 #: and 2 MoE+MLA layers: 60 layers would need 472 GB in bfloat16.
 ZOO_MLA_LAYERS, ZOO_MLA_BATCH, ZOO_MLA_DECODE = 3, 2, 16
+#: (d) deepseek-v2-lite at full width, cut in depth to its dense layer 0
+#: and one dropless MoE layer (64 experts of 1408, top-6, 2 shared), MLA
+#: in both; its MoE layer's output on its own input is held against the
+#: experts in float32 on exactly their routed tokens: at most
+#: ZOO_DROPLESS_ROWS_OFF of its rows may have a relative L2 gap above
+#: ZOO_DROPLESS_ROW_GAP (the benchmark cell's moe_rows_off and its limit;
+#: a dropped pair moves its row by far more), and the whole output's gap
+#: may not pass ZOO_DROPLESS_REL_L2 (bf16 products, a few 1e-3).
+ZOO_DROPLESS = "deepseek-v2-lite"
+ZOO_DROPLESS_LAYERS = 2
+ZOO_DROPLESS_ROW_GAP, ZOO_DROPLESS_ROWS_OFF = 0.05, 0.01
+ZOO_DROPLESS_REL_L2 = 1e-2
 #: The most memory phase 12 may find allocated: phase 11's train state
 #: (12.2 GB) must be freed by reference counts alone.
 ZOO_START_MAX_GB = 4.0
@@ -3515,7 +3648,8 @@ def zoo_mla() -> tuple[dict, tuple]:
     model, params, n = zoo_model(cfg, seed=40)
     tok = lm_tokens(ZOO_MLA_BATCH, ZOO_SEQ, cfg.vocab, seed=41)
     snap = k4_snapshot()
-    logits, cache, secs = zoo_prefills(model, params, tok, None, 0)
+    logits, cache, secs = zoo_prefills(model, params, tok, None,
+                                       ZOO_MLA_LAYERS)
     dec_ms = zoo_decode(model, params, cache, logits, ZOO_MLA_DECODE)
     del cache
     prof = device_profile(lambda: model.prefill(
@@ -3525,9 +3659,89 @@ def zoo_mla() -> tuple[dict, tuple]:
     out = {"n_params": n} | zoo_prefill_line(
         cfg, tok, secs, dec_ms, prof, torch.cuda.max_memory_allocated() / 1e9)
     out["serve"] = zoo_serve(model, params, 4, "cohort")
-    launches = zoo_path_launches(cfg, snap, 4, 0)
+    launches = zoo_path_launches(cfg, snap, 4, ZOO_MLA_LAYERS)
     out["no_drop"] = zoo_consistency(cfg, params, None, seed=42)
     del model, params, logits
+    free_memory()
+    return out, launches
+
+
+def dropless_f32(cfg, p: dict, x: torch.Tensor) -> tuple:
+    """The MoE FFN of x (B, S, D) in float32 as DeepSeek-V2 computes it:
+    a float32 router, softmax, greedy top-k with no renormalisation,
+    each routed expert run on exactly the tokens that chose it, plus the
+    shared experts as one MLP. Returns (y (B*S, D), the pairs routed)."""
+    e = cfg.moe
+    check(not e.norm_topk_prob, f"{cfg.name}: renormalised gates")
+    f = {k: t.float() for k, t in p.items()}
+    xt = x.reshape(-1, x.shape[-1]).float()
+
+    def mlp(h, w_in, w_gate, w_out):
+        return (F.silu(h @ w_gate) * (h @ w_in)) @ w_out
+
+    gate, sel = torch.topk(torch.softmax(xt @ f["router"], -1), e.top_k, -1)
+    y = mlp(xt, f["shared_in"], f["shared_gate"], f["shared_out"])
+    pairs = 0
+    for j in range(e.n_routed):
+        rows, slot = (sel == j).nonzero(as_tuple=True)
+        pairs += rows.numel()
+        y.index_add_(0, rows, gate[rows, slot, None] * mlp(
+            xt[rows], f["w_in"][j], f["w_gate"][j], f["w_out"][j]))
+    return y, pairs
+
+
+def zoo_dropless() -> tuple[dict, tuple]:
+    """(d) deepseek-v2-lite at full width, ZOO_DROPLESS_LAYERS layers:
+    three prefills, each one K4 launch a layer at MLA's q/k 192 and v 128
+    (wgmma), the last one's MoE layer against :func:`dropless_f32` on its
+    own input."""
+    cfg = replace(get_arch(ZOO_DROPLESS), n_layers=ZOO_DROPLESS_LAYERS)
+    check(cfg.moe.capacity_factor is None,
+          f"{cfg.name}: not the dropless dispatch")
+    model, params, n = zoo_model(cfg, seed=45)
+    tok = lm_tokens(ZOO_BATCH, ZOO_SEQ, cfg.vocab, seed=46)
+    snap = k4_snapshot()
+    seen, orig = [], moe_module.moe_ffn
+
+    def keep(c, p, x):
+        y, aux = orig(c, p, x)
+        seen[:] = [(p, x, y)]
+        return y, aux
+
+    moe_module.moe_ffn = keep
+    try:
+        logits, cache, secs = zoo_prefills(model, params, tok, None,
+                                           cfg.n_layers)
+    finally:
+        moe_module.moe_ffn = orig
+    launches = zoo_path_launches(cfg, snap, 3, cfg.n_layers)
+    del cache, logits
+    (p, x, y), = seen
+    want, pairs = dropless_f32(cfg, p, x)
+    got = y.reshape(want.shape).float()
+    gaps = ((got - want).norm(dim=-1) / want.norm(dim=-1))
+    err = {"pairs": pairs, "tokens": x.shape[0] * x.shape[1],
+           "rel_l2_err": float((got - want).norm() / want.norm()),
+           "worst_row": float(gaps.max()),
+           "rows_off": float((gaps > ZOO_DROPLESS_ROW_GAP).float().mean())}
+    check(pairs == err["tokens"] * cfg.moe.top_k,
+          f"zoo (d) {cfg.name}: {pairs} pairs routed, want "
+          f"{err['tokens']} x {cfg.moe.top_k}")
+    check(err["rows_off"] <= ZOO_DROPLESS_ROWS_OFF
+          and err["rel_l2_err"] <= ZOO_DROPLESS_REL_L2,
+          f"zoo (d) {cfg.name} dropless MoE layer vs float32 experts on "
+          f"their own tokens: {err}")
+    ms = statistics.median(secs[1:]) * 1e3
+    print(f"zoo (d) {cfg.name} bf16 x {cfg.n_layers} layers (dense + one "
+          f"dropless MoE layer): prefill {tok.shape[0]} x {tok.shape[1]} in "
+          f"{ms:.1f} ms (runs {[round(t * 1e3, 1) for t in secs]} ms, the "
+          f"first a warm-up), K4 {cfg.n_layers} wgmma launches a prefill at "
+          f"q/k 192, v 128; its MoE layer vs float32 experts on their own "
+          f"tokens {json.dumps(err)} (rows off by > "
+          f"{ZOO_DROPLESS_ROW_GAP:g} held to {ZOO_DROPLESS_ROWS_OFF:g}; "
+          f"whole tol {ZOO_DROPLESS_REL_L2:g}) ok", flush=True)
+    out = {"n_params": n, "prefill_ms": ms, "dropless": err}
+    del model, params, seen, p, x, y, want, got
     free_memory()
     return out, launches
 
@@ -3570,7 +3784,7 @@ def phase_zoo(tmp: Path) -> dict:
     with quickstart._env(**{WISDOM_DIR_ENV: str(tmp / "zoo-wisdom")}):
         ops.reload_wisdom()
         for name, fn in ((ZOO_MOE, zoo_moe), (ZOO_VISION, zoo_vision),
-                         (ZOO_MLA, zoo_mla)):
+                         (ZOO_MLA, zoo_mla), (ZOO_DROPLESS, zoo_dropless)):
             t = time.perf_counter()
             out[name], (n, b) = fn()
             out[name]["seconds"] = time.perf_counter() - t
@@ -4086,6 +4300,7 @@ def main() -> int:
     phase_build()
     headline = phase_kernels()
     wide = phase_wide_flash()
+    mla_row = phase_mla_flash()
     bwd_row = phase_flash_backward()
     headline["flash_attention_bwd"] = bwd_row["max_abs_err"]
     print(f"[{time.perf_counter() - t0:.0f}s] kernels agree with their "
@@ -4184,6 +4399,17 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    kernels.append({
+        "name": f"flash_attention_d{mla_row['head_dim']}"
+                f"v{mla_row['v_dim']}_{mla_row['dtype']}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": TPU_KERNELS["flash_attention"],
+        "launches": mla_row["launches"] * len(FA_MLA_SHAPES),
+        "max_abs_err": mla_row["max_abs_err"], "ms": mla_row["ms"],
+        "plain_ms": mla_row["plain_ms"], "bound_ms": mla_row["bound_ms"],
+        "bound_by": mla_row["bound_by"], "library_ms": mla_row["library_ms"],
+    })
     print(f"[{time.perf_counter() - t0:.0f}s] done", flush=True)
     print(nvidia_smi())   # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,10 @@ and the encoder-decoder), one module per architecture, each exporting
 ``CONFIG``.
 
 ``get_arch("codeqwen1.5-7b")`` returns the full config;
-``get_arch(name).reduced()`` the CPU smoke variant.
+``get_arch(name).reduced()`` the CPU smoke variant. ``list_archs()`` lists
+the reference's architectures, which the launcher's and the roofline's
+tables cover; ``get_arch`` also knows the port's own
+(:data:`PORT_ARCH_MODULES`: deepseek-v2-lite, which the reference lacks).
 """
 
 from __future__ import annotations
@@ -27,11 +30,17 @@ ARCH_MODULES: dict[str, str] = {
     "whisper-base": "repro_torch.configs.whisper_base",
 }
 
+#: Architectures the port runs and the reference does not have.
+PORT_ARCH_MODULES: dict[str, str] = {
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+}
+
 
 def get_arch(name: str) -> ArchConfig:
-    if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCH_MODULES)}")
-    return importlib.import_module(ARCH_MODULES[name]).CONFIG
+    modules = {**ARCH_MODULES, **PORT_ARCH_MODULES}
+    if name not in modules:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(modules)}")
+    return importlib.import_module(modules[name]).CONFIG
 
 
 def list_archs() -> list[str]:

@@ -1,17 +1,19 @@
 // flash_attention — forward attention over flattened heads, with the online
 // softmax, for causal (CAUSAL=1) and full (CAUSAL=0) masks.
-// q is (BH, S, D); k and v are (BHkv, S, D), all row-major and contiguous;
-// o is (BH, S, D) in q's dtype. Query head bh reads kv row bh / (BH / BHkv),
-// so grouped-query attention never materialises repeated kv heads. The
-// scale is 1/sqrt(D); o = acc / max(l, 1e-30).
+// q is (BH, S, D); k is (BHkv, S, D) and v (BHkv, S, DV), all row-major
+// and contiguous; o is (BH, S, DV) in q's dtype. DV is D, or 128 at D = 192
+// (MLA's heads: 128 nope + 64 rope dims for q and k, 128 for v). Query head
+// bh reads kv row bh / (BH / BHkv), so grouped-query attention never
+// materialises repeated kv heads. The scale is the launch's, 1/sqrt(D) when
+// it passes 0; o = acc / max(l, 1e-30).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_fa_kernel
 // (pl.pallas_call at flash_attention.py:123), which serves both builders,
 // flash_attention_causal and flash_attention_full.
 //
-// Bound on the H100: operations. 4 * BH * S^2 * D flop in full mode and
-// about half that in causal mode, against 2 * (BH + BHkv) * S * D elements
-// moved; at the LM slice's BH = 128, S = 2048, D = 128 in bf16 that is
+// Bound on the H100: operations. 2 * BH * S^2 * (D + DV) flop in full mode
+// and about half that in causal mode, against (BH + BHkv) * S * (D + DV)
+// elements moved; at the LM slice's BH = 128, S = 2048, D = 128 in bf16 that is
 // 137 GFLOP for 268 MB, about 500 flop a byte, above the card's 295.
 //
 // Design (one thread block per (bh, tile of BLOCK_Q query rows)):
@@ -54,7 +56,9 @@
 //    keys of a tile for Q.K and the head dimension for P.V; warp shuffles
 //    reduce the row max and sum. Rows of shared memory are padded by one
 //    word.
-//  * wgmma body (WGMMA=1): bfloat16 at D = 128, BLOCK_Q 64 or 128 with
+//  * wgmma body (WGMMA=1): bfloat16 at D = 128 or at D = 192 with DV = 128
+//    (Q.K^T then takes 12 k-steps over three 64-column panels; K's and V's
+//    panels of a stage differ in number), BLOCK_Q 64 or 128 with
 //    THREADS = 2 * BLOCK_Q (one warpgroup per 64 query rows, 16 rows a
 //    warp), BLOCK_K 64 or 128. Q, K and V arrive by TMA through 3-D tensor
 //    maps (D, S, heads), 128-byte swizzled in 64-column panels, so the kv
@@ -79,8 +83,9 @@
 //    setmaxnreg or overlap of the softmax with the products yet.
 //
 // Tunables (-D): BLOCK_Q, BLOCK_K, THREADS; CAUSAL; WGMMA; HEAD_DIM is the
-// problem's D. The launcher asks for the dynamic shared memory above 48 KB
-// with cudaFuncSetAttribute and returns its error if the card refuses.
+// problem's D and V_DIM its DV (D unless given). The launcher asks for the
+// dynamic shared memory above 48 KB with cudaFuncSetAttribute and returns
+// its error if the card refuses.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,13 +96,24 @@
 
 namespace {
 
-constexpr int D = HEAD_DIM;
+#ifndef V_DIM
+#define V_DIM HEAD_DIM
+#endif
+
+constexpr int D = HEAD_DIM;   // q's and k's head dim
+constexpr int DV = V_DIM;     // v's and o's head dim
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(D == 128 || D == 256 || D == 384 || D == 512,
-              "head dim 128, 256, 384 or 512");
+static_assert((D == DV && (D == 128 || D == 256 || D == 384 || D == 512)) ||
+                  (D == 192 && DV == 128),
+              "head dims 128, 256, 384 or 512, or q/k 192 with v 128");
+
+// The launch's scale, or 1/sqrt(D) for 0.
+__host__ __forceinline__ float softmax_scale(float scale) {
+  return scale > 0.0f ? scale : 1.0f / sqrtf(static_cast<float>(D));
+}
 
 __device__ __forceinline__ int q_tile() {
 #if CAUSAL
@@ -149,16 +165,18 @@ constexpr int STAGES = 2;                  // depth of the k/v ring
 constexpr int Q_PANEL = BLOCK_Q * 128;     // bytes of a 64-column Q panel
 constexpr int KV_PANEL = BLOCK_K * 128;    // bytes of a 64-column K/V panel
 constexpr int Q_BYTES = D / 64 * Q_PANEL;
-constexpr int KV_BYTES = D / 64 * KV_PANEL;
-constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K's panels, then V's
+constexpr int K_BYTES = D / 64 * KV_PANEL;
+constexpr int V_BYTES = DV / 64 * KV_PANEL;
+constexpr int STAGE_BYTES = K_BYTES + V_BYTES;  // K's panels, then V's
 constexpr int SACC = BLOCK_K / 2;          // score accumulators a thread
-constexpr int OACC = D / 2;                // output accumulators a thread
+constexpr int OACC = DV / 2;               // output accumulators a thread
 // 1024 bytes of slack to align Q, then Q, the ring, full[], empty[] and
 // Q's barrier.
 constexpr size_t SMEM = 1024 + static_cast<size_t>(Q_BYTES) +
                         STAGES * static_cast<size_t>(STAGE_BYTES) +
                         (2 * STAGES + 1) * sizeof(uint64_t);
-static_assert(D == 128, "the wgmma body takes D = 128");
+static_assert(DV == 128 && (D == 128 || D == 192),
+              "the wgmma body takes D = 128, or D = 192 with DV = 128");
 static_assert(WG == 1 || WG == 2, "BLOCK_Q 64 or 128");
 static_assert(THREADS == 128 * WG, "one warpgroup per 64 query rows");
 static_assert(BLOCK_K == 64 || BLOCK_K == 128, "BLOCK_K 64 or 128");
@@ -170,10 +188,11 @@ __device__ __forceinline__ void fill_stage(uint8_t* st, uint64_t* full,
                                            int kvh) {
   mbar_expect_tx(full, STAGE_BYTES);
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p) {
+  for (int p = 0; p < D / 64; ++p)
     tma_load_3d(st + p * KV_PANEL, tk, full, 64 * p, k0, kvh);
-    tma_load_3d(st + KV_BYTES + p * KV_PANEL, tv, full, 64 * p, k0, kvh);
-  }
+#pragma unroll
+  for (int p = 0; p < DV / 64; ++p)
+    tma_load_3d(st + K_BYTES + p * KV_PANEL, tv, full, 64 * p, k0, kvh);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -232,7 +251,7 @@ __global__ void __launch_bounds__(THREADS)
     const int st = kt % STAGES, k0 = kt * BLOCK_K;
     const uint32_t phase = (kt / STAGES) & 1;
     uint8_t* ks = ring + st * STAGE_BYTES;
-    const uint8_t* vs = ks + KV_BYTES;
+    const uint8_t* vs = ks + K_BYTES;
     // This warp is done reading the stage: one arrival on its empty
     // barrier; thread 0 then waits for every warp's and refills the stage
     // with tile kt + STAGES.
@@ -304,7 +323,7 @@ __global__ void __launch_bounds__(THREADS)
         l[h] = alpha * l[h] + rs;
         m[h] = mx;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < DV / 8; ++c) {
           acc[4 * c + 2 * h] *= alpha;
           acc[4 * c + 2 * h + 1] *= alpha;
         }
@@ -340,9 +359,9 @@ __global__ void __launch_bounds__(THREADS)
     if (row >= s) continue;
     const float inv = 1.0f / fmaxf(l[h], 1e-30f);
     __nv_bfloat16* orow =
-        o + (static_cast<size_t>(bh) * s + row) * D + 2 * t;
+        o + (static_cast<size_t>(bh) * s + row) * DV + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
           __floats2bfloat162_rn(acc[4 * c + 2 * h] * inv,
                                 acc[4 * c + 2 * h + 1] * inv);
@@ -350,14 +369,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh,
-                 int bhkv, int s, cudaStream_t stream) {
+                 int bhkv, int s, float scale, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int err = make_tma_map_bf16_3d(&tq, q, D, s, bh, BLOCK_Q);
   if (err == 0) err = make_tma_map_bf16_3d(&tk, k, D, s, bhkv, BLOCK_K);
-  if (err == 0) err = make_tma_map_bf16_3d(&tv, v, D, s, bhkv, BLOCK_K);
+  if (err == 0) err = make_tma_map_bf16_3d(&tv, v, DV, s, bhkv, BLOCK_K);
   if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
       fa_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -368,8 +387,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh,
   }
   const dim3 grid((s + BLOCK_Q - 1) / BLOCK_Q, bh);
   fa_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), s, bh / bhkv,
-      1.0f / sqrtf(static_cast<float>(D)));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), s, bh / bhkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 #else
@@ -378,9 +396,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh,
 constexpr int WARPS = THREADS / 32;   // row groups
 constexpr int RW = BLOCK_Q / WARPS;   // query rows per warp
 constexpr int MT = RW / 16;           // m16 tiles per warp (bf16 path)
-// Warps per row group, each owning DS head dims of O (D > 256 only).
-constexpr int NSPLIT = D > 256 ? D / 128 : 1;
-constexpr int DS = D / NSPLIT;
+// Warps per row group, each owning DS head dims of O (DV > 256 only).
+constexpr int NSPLIT = DV > 256 ? DV / 128 : 1;
+constexpr int DS = DV / NSPLIT;
 constexpr int NT = THREADS * NSPLIT;  // threads a block launches
 
 static_assert(THREADS % 32 == 0 && BLOCK_Q % WARPS == 0, "whole warps");
@@ -388,12 +406,17 @@ static_assert(RW == 16 || RW == 32, "16 or 32 query rows per warp");
 static_assert(BLOCK_K % 32 == 0, "key tiles of whole warps");
 static_assert(NT <= 1024, "at most 1024 threads a block");
 
-constexpr int BF_STRIDE = D + 8;   // bf16 elements per shared-memory row
-constexpr int F_STRIDE = D + 1;    // f32 words per shared-memory row
+// Elements per shared-memory row: bf16 Q and K, bf16 V; f32 Q and K, f32 V.
+constexpr int BF_STRIDE = D + 8;
+constexpr int BFV_STRIDE = DV + 8;
+constexpr int F_STRIDE = D + 1;
+constexpr int FV_STRIDE = DV + 1;
 constexpr size_t SMEM_BF16 =
-    static_cast<size_t>(BLOCK_Q + 2 * BLOCK_K) * BF_STRIDE * 2;
+    (static_cast<size_t>(BLOCK_Q + BLOCK_K) * BF_STRIDE +
+     static_cast<size_t>(BLOCK_K) * BFV_STRIDE) * 2;
 constexpr size_t SMEM_F32 =
-    static_cast<size_t>(BLOCK_Q + 2 * BLOCK_K) * F_STRIDE * 4;
+    (static_cast<size_t>(BLOCK_Q + BLOCK_K) * F_STRIDE +
+     static_cast<size_t>(BLOCK_K) * FV_STRIDE) * 4;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -409,19 +432,20 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ------------------------------------------------------------------ bf16
 
-// rows [r0, r0 + rows) of a (S, D) matrix into shared memory, 16 bytes a
-// thread; rows at or past S are zero.
+// rows [r0, r0 + rows) of a (S, W) matrix into shared memory rows of
+// STRIDE elements, 16 bytes a thread; rows at or past S are zero.
+template <int W, int STRIDE>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int rows, int s) {
-  constexpr int VPR = D / 8;   // 16-byte vectors per row
+  constexpr int VPR = W / 8;   // 16-byte vectors per row
   for (int i = threadIdx.x; i < rows * VPR; i += NT) {
     const int r = i / VPR, c = i % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < s)
       val = __ldg(reinterpret_cast<const uint4*>(
-                      src + static_cast<size_t>(r0 + r) * D) + c);
-    *reinterpret_cast<uint4*>(dst + r * BF_STRIDE + c * 8) = val;
+                      src + static_cast<size_t>(r0 + r) * W) + c);
+    *reinterpret_cast<uint4*>(dst + r * STRIDE + c * 8) = val;
   }
 }
 
@@ -466,14 +490,16 @@ __global__ void __launch_bounds__(NT)
   const int q0 = q_tile() * BLOCK_Q;
   const int bh = blockIdx.y;
   const size_t q_off = static_cast<size_t>(bh) * s * D;
-  const size_t kv_off = static_cast<size_t>(bh / group) * s * D;
+  const size_t k_off = static_cast<size_t>(bh / group) * s * D;
+  const size_t v_off = static_cast<size_t>(bh / group) * s * DV;
+  const size_t o_off = static_cast<size_t>(bh) * s * DV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;   // fragment row group, column pair
   const int w0 = warp % WARPS * RW;        // the warp's first row in the tile
   const int d0 = warp / WARPS * DS;        // its first head dim of O
   const float sl2 = scale * LOG2E;
 
-  load_tile(qs, q + q_off, q0, BLOCK_Q, s);
+  load_tile<D, BF_STRIDE>(qs, q + q_off, q0, BLOCK_Q, s);
 
   float acc[MT][DS / 8][4];
   float m[MT][2], l[MT][2];   // rows g and g + 8 of each m tile
@@ -494,8 +520,8 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BLOCK_K;
     __syncthreads();   // the last tile's readers are done
-    load_tile(ks, k + kv_off, k0, BLOCK_K, s);
-    load_tile(vs, v + kv_off, k0, BLOCK_K, s);
+    load_tile<D, BF_STRIDE>(ks, k + k_off, k0, BLOCK_K, s);
+    load_tile<DV, BFV_STRIDE>(vs, v + v_off, k0, BLOCK_K, s);
     __syncthreads();
 #if CAUSAL
     if (k0 > q0 + w0 + RW - 1) continue;   // every row of the warp is above
@@ -590,7 +616,7 @@ __global__ void __launch_bounds__(NT)
       for (int dt = 0; dt < DS / 8; ++dt) {
         uint32_t b0, b1;
         ldmatrix_x2_trans(
-            b0, b1, vs + (kb * 16 + (lane & 15)) * BF_STRIDE + d0 + dt * 8);
+            b0, b1, vs + (kb * 16 + (lane & 15)) * BFV_STRIDE + d0 + dt * 8);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma(acc[mt][dt], a[mt], b0, b1);
       }
@@ -605,7 +631,7 @@ __global__ void __launch_bounds__(NT)
       if (row >= s) continue;
       const float inv = 1.0f / fmaxf(l[mt][h], 1e-30f);
       __nv_bfloat16* orow =
-          o + q_off + static_cast<size_t>(row) * D + d0 + 2 * t;
+          o + o_off + static_cast<size_t>(row) * DV + d0 + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < DS / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
@@ -616,12 +642,13 @@ __global__ void __launch_bounds__(NT)
 
 // ------------------------------------------------------------------- f32
 
+template <int W, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int rows, int s) {
-  for (int i = threadIdx.x; i < rows * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[r * F_STRIDE + c] =
-        r0 + r < s ? __ldg(src + static_cast<size_t>(r0 + r) * D + c) : 0.0f;
+  for (int i = threadIdx.x; i < rows * W; i += NT) {
+    const int r = i / W, c = i % W;
+    dst[r * STRIDE + c] =
+        r0 + r < s ? __ldg(src + static_cast<size_t>(r0 + r) * W + c) : 0.0f;
   }
 }
 
@@ -639,12 +666,14 @@ __global__ void __launch_bounds__(NT)
   const int q0 = q_tile() * BLOCK_Q;
   const int bh = blockIdx.y;
   const size_t q_off = static_cast<size_t>(bh) * s * D;
-  const size_t kv_off = static_cast<size_t>(bh / group) * s * D;
+  const size_t k_off = static_cast<size_t>(bh / group) * s * D;
+  const size_t v_off = static_cast<size_t>(bh / group) * s * DV;
+  const size_t o_off = static_cast<size_t>(bh) * s * DV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int w0 = warp % WARPS * RW;
   const int d0 = warp / WARPS * DS;
 
-  load_tile(qs, q + q_off, q0, BLOCK_Q, s);
+  load_tile<D, F_STRIDE>(qs, q + q_off, q0, BLOCK_Q, s);
 
   float acc[RW][DPL], m[RW], l[RW];
   for (int r = 0; r < RW; ++r) {
@@ -657,8 +686,8 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BLOCK_K;
     __syncthreads();
-    load_tile(ks, k + kv_off, k0, BLOCK_K, s);
-    load_tile(vs, v + kv_off, k0, BLOCK_K, s);
+    load_tile<D, F_STRIDE>(ks, k + k_off, k0, BLOCK_K, s);
+    load_tile<DV, FV_STRIDE>(vs, v + v_off, k0, BLOCK_K, s);
     __syncthreads();
 #if CAUSAL
     if (k0 > q0 + w0 + RW - 1) continue;
@@ -697,7 +726,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < BLOCK_K; ++c) {
         const float p = __shfl_sync(FULL, sc[c / 32], c % 32);
-        const float* vr = vs + c * F_STRIDE + d0 + lane;
+        const float* vr = vs + c * FV_STRIDE + d0 + lane;
 #pragma unroll
         for (int j = 0; j < DPL; ++j) a[j] = fmaf(p, vr[32 * j], a[j]);
       }
@@ -710,7 +739,7 @@ __global__ void __launch_bounds__(NT)
     const int row = q0 + w0 + r;
     if (row >= s) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = o + q_off + static_cast<size_t>(row) * D + d0 + lane;
+    float* orow = o + o_off + static_cast<size_t>(row) * DV + d0 + lane;
     for (int j = 0; j < DPL; ++j) orow[32 * j] = acc[r][j] / denom;
   }
 }
@@ -720,7 +749,7 @@ __global__ void __launch_bounds__(NT)
 template <typename T>
 int launch(void (*kern)(const T*, const T*, const T*, T*, int, int, float),
            size_t smem, const void* q, const void* k, const void* v, void* o,
-           int bh, int bhkv, int s, cudaStream_t stream) {
+           int bh, int bhkv, int s, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -731,8 +760,7 @@ int launch(void (*kern)(const T*, const T*, const T*, T*, int, int, float),
   const dim3 grid((s + BLOCK_Q - 1) / BLOCK_Q, bh);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, bh / bhkv,
-      1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(o), s, bh / bhkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -741,22 +769,26 @@ int launch(void (*kern)(const T*, const T*, const T*, T*, int, int, float),
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; a WGMMA build takes bfloat16 only, on
-// 16-byte aligned q, k and v. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape this build does not take).
+// 16-byte aligned q, k and v. scale: the softmax scale, 0 for 1/sqrt(d).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape
+// this build does not take).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int bh,
-                                      int bhkv, int s, int d, void* stream) {
-  if (d != D || bh < 1 || bhkv < 1 || bh % bhkv != 0 || s < 1)
+                                      int bhkv, int s, int d, int dv,
+                                      float scale, void* stream) {
+  if (d != D || dv != DV || bh < 1 || bhkv < 1 || bh % bhkv != 0 || s < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sc = softmax_scale(scale);
 #if WGMMA
-  if (dtype == 1) return launch_wgmma(q, k, v, o, bh, bhkv, s, st);
+  if (dtype == 1) return launch_wgmma(q, k, v, o, bh, bhkv, s, sc, st);
 #else
   if (dtype == 0)
-    return launch<float>(fa_f32_kernel, SMEM_F32, q, k, v, o, bh, bhkv, s, st);
+    return launch<float>(fa_f32_kernel, SMEM_F32, q, k, v, o, bh, bhkv, s, sc,
+                         st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(fa_bf16_kernel, SMEM_BF16, q, k, v, o, bh,
-                                 bhkv, s, st);
+                                 bhkv, s, sc, st);
 #endif
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,6 +7,14 @@ q: (B*Hq, S, D), k/v: (B*Hkv, S, D); the kernel maps query head bh to kv
 row bh // (BH // BHkv), so grouped kv is never materialised. The problem is
 ``(BH, BHkv, S, D)``, so captures and wisdom keep the reference's format.
 
+MLA's heads (DeepSeek-V2) are wider for q and k than for v: the kernel also
+takes the pairs of :data:`SPLIT_DIMS` (q/k 192, v 128), with v (BHkv, S,
+Dv) and o (BH, S, Dv), and a softmax scale passed in (MLA's YaRN scale).
+Their problem is ``(BH, BHkv, S, D, Dv)``; a launch passes the scale as a
+fourth argument (``kernel(q, k, v, scale)``), which is no part of the
+problem. The v head dim is compiled in beside D (``-DV_DIM``, only where
+it differs from D, so the equal-dim builds keep their defines).
+
 Two builders are registered (causal / full), as in the reference: causality
 changes the problem's work, not just a value, so they tune and store
 wisdom independently. One CUDA source serves both, with ``-DCAUSAL=0/1``,
@@ -66,7 +74,7 @@ from ._build import CudaKernel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 kernel = CudaKernel("flash_attention", "flash_attention.cu",
                     "flash_attention_launch",
-                    (_P, _P, _P, _P, _I, _I, _I, _I, _P))
+                    (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P))
 
 
 def kernel_of(config) -> CudaKernel:
@@ -77,6 +85,9 @@ def kernel_of(config) -> CudaKernel:
 #: slice's), 256, 384 and 512. ``ops.flashable`` admits any multiple of
 #: 128; ``ops.attention`` sends a larger one to the plain version.
 HEAD_DIMS = (128, 256, 384, 512)
+#: (q/k head dim, v head dim) pairs of unequal dims the kernel takes: MLA's
+#: (d_nope + d_rope, d_v) of DeepSeek-V2.
+SPLIT_DIMS = ((192, 128),)
 #: Most threads a block may have.
 _MAX_THREADS = 1024
 #: The config a launch runs when the card refuses the selected one at the
@@ -96,12 +107,22 @@ WGMMA_STAGES = 2
 BODY_LAUNCHES = kernel.body_launches
 
 
-def choose_body(dtype: str, head_dim: int, config) -> str:
+def takes_dims(head_dim: int, v_dim: int) -> bool:
+    """Whether the kernel takes q/k head dim ``head_dim`` with v head dim
+    ``v_dim``."""
+    return ((head_dim == v_dim and head_dim in HEAD_DIMS)
+            or (head_dim, v_dim) in SPLIT_DIMS)
+
+
+def choose_body(dtype: str, head_dim: int, config,
+                v_dim: int | None = None) -> str:
     """The body a launch runs: the rule, stated once. ``"wgmma"`` for
-    bfloat16 at D = 128 with whole warpgroups of 16 rows a warp
-    (``block_q`` 64 or 128, ``threads == 2 * block_q``) and a key tile
-    ``wgmma`` takes (``block_k`` 64 or 128); ``"mma"`` otherwise."""
-    if (dtype == "bfloat16" and head_dim == 128
+    bfloat16 at D = 128 (or q/k 192 with v 128) with whole warpgroups of
+    16 rows a warp (``block_q`` 64 or 128, ``threads == 2 * block_q``)
+    and a key tile ``wgmma`` takes (``block_k`` 64 or 128); ``"mma"``
+    otherwise."""
+    dims = (head_dim, head_dim if v_dim is None else v_dim)
+    if (dtype == "bfloat16" and dims in ((128, 128), (192, 128))
             and config["block_q"] in (64, 128)
             and config["threads"] == 2 * config["block_q"]
             and config["block_k"] in (64, 128)):
@@ -109,53 +130,58 @@ def choose_body(dtype: str, head_dim: int, config) -> str:
     return "mma"
 
 
-def smem_bytes(config, body: str, head_dim: int, dtype: str) -> int:
+def smem_bytes(config, body: str, head_dim: int, dtype: str,
+               v_dim: int | None = None) -> int:
     """Dynamic shared memory of one block, as ``csrc/flash_attention.cu``
     lays it out. mma: the Q tile and one K and one V tile, rows padded.
     wgmma: 1024 bytes of alignment slack, the Q tile, two stages of K and
     V tiles (unpadded, 128-byte swizzled), and five mbarriers."""
     bq, bk = config["block_q"], config["block_k"]
+    dv = head_dim if v_dim is None else v_dim
     if body == "wgmma":
-        return (1024 + (bq + 2 * WGMMA_STAGES * bk) * head_dim * 2
-                + (2 * WGMMA_STAGES + 1) * 8)
-    rows = bq + 2 * bk
+        return (1024 + (bq * head_dim + WGMMA_STAGES * bk * (head_dim + dv))
+                * 2 + (2 * WGMMA_STAGES + 1) * 8)
     if dtype == "bfloat16":
-        return rows * (head_dim + 8) * 2
-    return rows * (head_dim + 1) * 4
+        return ((bq + bk) * (head_dim + 8) + bk * (dv + 8)) * 2
+    return ((bq + bk) * (head_dim + 1) + bk * (dv + 1)) * 4
 
 
-def launch_threads(config, body: str, head_dim: int) -> int:
+def launch_threads(config, body: str, head_dim: int,
+                   v_dim: int | None = None) -> int:
     """Threads a block launches: ``threads``, or in the ``mma`` body at
-    D > 256 ``threads * D / 128`` (one warp a row group and 128-wide
-    slice of the output)."""
-    if body == "mma" and head_dim > 256:
-        return config["threads"] * (head_dim // 128)
+    an output head dim above 256 ``threads * Dv / 128`` (one warp a row
+    group and 128-wide slice of the output)."""
+    dv = head_dim if v_dim is None else v_dim
+    if body == "mma" and dv > 256:
+        return config["threads"] * (dv // 128)
     return config["threads"]
 
 
-def card_refusal(config, body: str, head_dim: int, dtype: str) -> str:
+def card_refusal(config, body: str, head_dim: int, dtype: str,
+                 v_dim: int | None = None) -> str:
     """Why the H100 would refuse ``config`` in ``body``, or ``""``."""
-    smem = smem_bytes(config, body, head_dim, dtype)
+    smem = smem_bytes(config, body, head_dim, dtype, v_dim)
     if smem > GPU_H100.smem_per_block:
         return (f"{body} body needs {smem} bytes of shared memory at D = "
                 f"{head_dim} in {dtype}, above the "
                 f"{GPU_H100.smem_per_block} a block may have")
-    threads = launch_threads(config, body, head_dim)
+    threads = launch_threads(config, body, head_dim, v_dim)
     if threads > _MAX_THREADS:
         return (f"{body} body launches {threads} threads a block at D = "
                 f"{head_dim}, above the {_MAX_THREADS} a block may have")
     return ""
 
 
-def fit_config(config, head_dim: int, dtype: str):
+def fit_config(config, head_dim: int, dtype: str, v_dim: int | None = None):
     """``config``, or :data:`FIT_CONFIGS`'s for ``dtype`` where the card
     would refuse ``config`` at ``head_dim``: the selection hook, so a
     config chosen for another scenario (or the default, whose float32
     tiles overflow shared memory above D 256) never reaches a launch it
     cannot make. A config the caller forces is launched as it is."""
-    if dtype not in FIT_CONFIGS or head_dim not in HEAD_DIMS or \
-            not card_refusal(config, choose_body(dtype, head_dim, config),
-                             head_dim, dtype):
+    dv = head_dim if v_dim is None else v_dim
+    if dtype not in FIT_CONFIGS or not takes_dims(head_dim, dv) or \
+            not card_refusal(config, choose_body(dtype, head_dim, config,
+                                                 dv), head_dim, dtype, dv):
         return config
     return dict(FIT_CONFIGS[dtype])
 
@@ -189,20 +215,26 @@ ROW_L2_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 def defines(config, causal: bool, head_dim: int,
-            body: str) -> tuple[tuple[str, int], ...]:
-    """The -D defines of the build that runs ``body``."""
-    return (("BLOCK_Q", config["block_q"]), ("BLOCK_K", config["block_k"]),
-            ("THREADS", config["threads"]), ("CAUSAL", int(causal)),
-            ("HEAD_DIM", head_dim), ("WGMMA", int(body == "wgmma")))
+            body: str, v_dim: int | None = None) -> tuple[tuple[str, int],
+                                                           ...]:
+    """The -D defines of the build that runs ``body``; ``V_DIM`` only
+    where v's head dim differs from q's and k's."""
+    out = (("BLOCK_Q", config["block_q"]), ("BLOCK_K", config["block_k"]),
+           ("THREADS", config["threads"]), ("CAUSAL", int(causal)),
+           ("HEAD_DIM", head_dim), ("WGMMA", int(body == "wgmma")))
+    if v_dim is not None and v_dim != head_dim:
+        out += (("V_DIM", v_dim),)
+    return out
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless q (BH, S, D) and k, v (BHkv, S, D) are contiguous
-    float32 or bfloat16 tensors of one dtype and device, with BH a multiple
-    of BHkv and D in :data:`HEAD_DIMS`."""
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"flash attention needs q (BH, S, D) and k, v "
-                         f"(BHkv, S, D), got {tuple(q.shape)}, "
+    """Raise unless q (BH, S, D), k (BHkv, S, D) and v (BHkv, S, Dv) are
+    contiguous float32 or bfloat16 tensors of one dtype and device, with
+    BH a multiple of BHkv and (D, Dv) a pair the kernel takes
+    (:func:`takes_dims`)."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"flash attention needs q (BH, S, D), k (BHkv, S, "
+                         f"D) and v (BHkv, S, Dv), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     bh, s, d = q.shape
     bhkv = k.shape[0]
@@ -220,20 +252,23 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if bhkv < 1 or bh % bhkv or s < 1:
         raise ValueError(f"flash attention: BH={bh} is not a multiple of "
                          f"BHkv={bhkv}, or S={s} is empty")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+    if not takes_dims(d, v.shape[2]):
+        raise ValueError(f"flash attention takes head dims {HEAD_DIMS} "
+                         f"and the (q/k, v) pairs {SPLIT_DIMS}, got "
+                         f"{(d, v.shape[2])}")
 
 
-def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
+def launch(config, q, k, v, scale: float | None = None, *,
+           causal: bool) -> torch.Tensor:
     """Attention over flattened heads: the CUDA kernel with ``config`` on
     CUDA tensors, the plain version on CPU tensors, the output's shape on
-    ``meta`` tensors (nothing launches)."""
+    ``meta`` tensors (nothing launches). ``scale`` None is D^-0.5, which
+    the kernel computes itself."""
     check_args(q, k, v)
     if q.device.type == "cpu":
-        return _ref.flash_attention_ref_factory(causal)(q, k, v)
+        return _ref.flash_attention_ref_factory(causal)(q, k, v, scale=scale)
     if q.device.type == "meta":       # shapes only, as every meta op
-        return torch.empty_like(q)
+        return q.new_empty(q.shape[:2] + v.shape[2:])
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: the kernel runs on CUDA tensors, "
                          f"got a {q.device.type} tensor")
@@ -244,10 +279,12 @@ def launch(config, q, k, v, *, causal: bool) -> torch.Tensor:
                          f"outside the kernel's range, or an operand not "
                          f"16-byte aligned")
     dtype = dtype_name(q.dtype)
-    body = choose_body(dtype, d, config)
-    o = torch.empty_like(q)
-    kernel(defines(config, causal, d, body), dtype, q.data_ptr(),
+    dv = v.shape[2]
+    body = choose_body(dtype, d, config, dv)
+    o = q.new_empty((bh, s, dv))
+    kernel(defines(config, causal, d, body, dv), dtype, q.data_ptr(),
            k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, k.shape[0], s, d,
+           dv, 0.0 if scale is None else float(scale),
            torch.cuda.current_stream(q.device).cuda_stream, body=body)
     return o
 
@@ -267,26 +304,30 @@ class FlashAttentionFn(torch.autograd.Function):
     host exercises the same wiring as the card.
 
     ``ctx`` saves the inputs q, k, v, never the kernel's output, so under
-    ``torch.utils.checkpoint`` a recompute launches the kernel again."""
+    ``torch.utils.checkpoint`` a recompute launches the kernel again. A
+    ``scale`` (MLA's) goes to the kernel as its fourth argument; such a
+    call, and v narrower than q, take the plain recompute backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kernel, bwd_kernel, causal: bool):
+    def forward(ctx, q, k, v, kernel, bwd_kernel, causal: bool,
+                scale: float | None = None):
         ctx.save_for_backward(q, k, v)
         ctx.bwd_kernel = bwd_kernel
         ctx.causal = causal
-        return kernel(q, k, v)
+        ctx.scale = scale
+        return kernel(q, k, v) if scale is None else kernel(q, k, v, scale)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
         with obs.span("attn_backward", "model", grad_out.device):
-            if _bwd.takes(q):
+            if ctx.scale is None and v.shape == k.shape and _bwd.takes(q):
                 dq, dk, dv = ctx.bwd_kernel(q, k, v, grad_out.contiguous())
             else:
                 dq, dk, dv = _ref.flash_attention_bwd_ref_factory(
-                    ctx.causal)(q, k, v, grad_out)
-        return dq, dk, dv, None, None, None
+                    ctx.causal)(q, k, v, grad_out, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def through_flash_fn(out: torch.Tensor) -> bool:
@@ -314,23 +355,24 @@ def _make_builder(causal: bool) -> KernelBuilder:
     b.restriction(fits_card)
 
     @b.problem_size
-    def _problem(q, k, v):
+    def _problem(q, k, v, scale=None):
         bh, s, d = q.shape
-        return (int(bh), int(k.shape[0]), int(s), int(d))
+        problem = (int(bh), int(k.shape[0]), int(s), int(d))
+        return problem if v.shape[2] == d else problem + (int(v.shape[2]),)
 
     @b.build
     def _build(config, problem, meta):
-        d = problem[3]
-        if d not in HEAD_DIMS:
-            raise ValueError(f"{name}: head dim {d} is not one of "
-                             f"{HEAD_DIMS}")
+        d, dv = problem[3], problem[-1]
+        if not takes_dims(d, dv):
+            raise ValueError(f"{name}: head dims {(d, dv)} are not one of "
+                             f"{HEAD_DIMS} or {SPLIT_DIMS}")
         # nvcc: the JIT step, for the body this scenario's dtype selects
-        body = choose_body(meta[0].dtype, d, config)
-        lib = (kernel.load(defines(config, causal, d, body))
+        body = choose_body(meta[0].dtype, d, config, dv)
+        lib = (kernel.load(defines(config, causal, d, body, dv))
                if meta[0].device.type == "cuda" else None)
 
-        def run(q, k, v):
-            return launch(config, q, k, v, causal=causal)
+        def run(q, k, v, scale=None):
+            return launch(config, q, k, v, scale, causal=causal)
 
         run.library = lib
         return run
@@ -339,7 +381,7 @@ def _make_builder(causal: bool) -> KernelBuilder:
 
     @b.fit
     def _fit(config, problem, dtype):
-        return fit_config(config, problem[3], dtype)
+        return fit_config(config, problem[3], dtype, problem[-1])
 
     @b.workload
     def _workload(config, problem, dtype):
@@ -356,31 +398,34 @@ def _make_builder(causal: bool) -> KernelBuilder:
         ``unroll_ways`` the tiles in flight (the wgmma body's two-stage
         ring, one for mma); ``reuse`` stays 1, as the k/v re-reads are L2
         hits. Invalid where :func:`launch` would refuse the problem or the
-        card the config."""
-        bh, bhkv, s, d = problem
-        body = choose_body(dtype, d, config)
+        card the config. At unequal dims (``problem[4]`` = Dv) Q.K^T
+        takes D and P.V Dv multiply-adds a pair; q, k move D elements a
+        row and v, o Dv."""
+        bh, bhkv, s, d = problem[:4]
+        dv = problem[-1] if len(problem) == 5 else d
+        body = choose_body(dtype, d, config, dv)
         byt = 4 if dtype == "float32" else 2
         pairs = s * (s + 1) / 2 if causal else float(s * s)
-        valid = (dtype in ("float32", "bfloat16") and d in HEAD_DIMS
+        valid = (dtype in ("float32", "bfloat16") and takes_dims(d, dv)
                  and bhkv >= 1 and bh % bhkv == 0 and s >= 1
                  and bh <= _MAX_GRID_Y and bh * s * d < 2**31
-                 and not card_refusal(config, body, d, dtype))
+                 and not card_refusal(config, body, d, dtype, dv))
         return Workload(
-            flops=4.0 * bh * d * pairs,
-            hbm_bytes=float((2 * bh + 2 * bhkv) * s * d * byt),
-            vmem_bytes=smem_bytes(config, body, d, dtype),
+            flops=2.0 * bh * (d + dv) * pairs,
+            hbm_bytes=float((bh + bhkv) * s * (d + dv) * byt),
+            vmem_bytes=smem_bytes(config, body, d, dtype, dv),
             grid=-(-s // config["block_q"]) * bh,
             mxu_tile=(config["block_q"], config["block_k"], d),
             unroll_ways=2 if body == "wgmma" else 1, valid=valid)
 
     @b.probe
     def _probe(problem, dtype):
-        bh, bhkv, s, d = problem
+        bh, bhkv, s, d = problem[:4]
         rng = np.random.default_rng(0)
         scale = 1.0 / (d ** 0.5)
         return (probe_array(rng, (bh, s, d), dtype, scale),
                 probe_array(rng, (bhkv, s, d), dtype, scale),
-                probe_array(rng, (bhkv, s, d), dtype, scale))
+                probe_array(rng, (bhkv, s, problem[-1]), dtype, scale))
 
     register(b)
     return b

@@ -65,16 +65,20 @@ def matmul(a, b):
 
 
 def flashable(q, k, *, window=None, softcap=None, scale=None,
-              kv_offset: int = 0) -> bool:
+              kv_offset: int = 0, v=None) -> bool:
     """Whether :func:`attention` sends a call to the flash kernel: the
     reference's predicate (``repro/kernels/ops.py:67-76``) without its two
-    backend terms, since the tensors' device decides the path here."""
+    backend terms, since the tensors' device decides the path here; and
+    besides it MLA's heads, q/k wider than ``v`` by a pair of
+    ``flash_attention.SPLIT_DIMS``, at any scale."""
     Sq, D = q.shape[2], q.shape[3]
     Sk = k.shape[2]
+    plain = (window is None and softcap is None and kv_offset == 0
+             and Sq == Sk and Sq % 128 == 0)
+    if v is not None and v.shape[3] != D:
+        return plain and (D, v.shape[3]) in _fa_mod.SPLIT_DIMS
     default_scale = scale is None or abs(scale - D ** -0.5) < 1e-12
-    return (window is None and softcap is None and default_scale
-            and kv_offset == 0 and Sq == Sk
-            and Sq % 128 == 0 and D % 128 == 0)
+    return plain and default_scale and D % 128 == 0
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -82,9 +86,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               kv_offset: int = 0):
     """Multi-head attention, q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
 
-    Calls that meet :func:`flashable` and whose head dim the kernel takes
-    (``flash_attention.HEAD_DIMS``) go to the flash kernel (its plain
-    version for CPU tensors); the rest run the full-featured plain
+    Calls that meet :func:`flashable` and whose head dims the kernel takes
+    (``flash_attention.takes_dims``: ``HEAD_DIMS``, or MLA's q/k 192 with
+    v 128, whose scale the kernel is given) go to the flash kernel (its
+    plain version for CPU tensors); the rest run the full-featured plain
     ``ref.attention_ref`` on the tensors' device, as the reference runs its
     oracle for them. The flash call goes through
     ``flash_attention.FlashAttentionFn``: the kernel forward; the backward
@@ -100,16 +105,19 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if isinstance(q, DTensor):
         out = sharded.local_attention(attention, q, k, v, **kw)
         return out if out is not None else ref.attention_ref(q, k, v, **kw)
-    if q.shape[3] not in _fa_mod.HEAD_DIMS or not flashable(
-            q, k, window=window, softcap=softcap, scale=scale,
-            kv_offset=kv_offset):
-        return ref.attention_ref(q, k, v, **kw)
     B, Hq, S, D = q.shape
+    Dv = v.shape[3]
+    if not _fa_mod.takes_dims(D, Dv) or not flashable(
+            q, k, window=window, softcap=softcap, scale=scale,
+            kv_offset=kv_offset, v=v):
+        return ref.attention_ref(q, k, v, **kw)
     Hkv = k.shape[1]
     qf = q.reshape(B * Hq, S, D).contiguous()
     kf = k.reshape(B * Hkv, S, D).contiguous()
-    vf = v.reshape(B * Hkv, S, D).contiguous()
+    vf = v.reshape(B * Hkv, S, Dv).contiguous()
     kernel, bwd = ((fa_causal_kernel, fa_bwd_causal_kernel) if causal
                    else (fa_full_kernel, fa_bwd_full_kernel))
-    of = _fa_mod.FlashAttentionFn.apply(qf, kf, vf, kernel, bwd, causal)
-    return of.reshape(B, Hq, S, D)
+    # the default scale stays the kernel's own D^-0.5
+    of = _fa_mod.FlashAttentionFn.apply(qf, kf, vf, kernel, bwd, causal,
+                                        None if Dv == D else scale)
+    return of.reshape(B, Hq, S, Dv)

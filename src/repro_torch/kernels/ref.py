@@ -281,14 +281,15 @@ def _chunks(total: int, chunk: int, step, carry, xs, dim: int = 0):
 
 def flash_attention_ref_factory(causal: bool):
     """Plain version of the flash kernel, in its flattened-head layout:
-    q: (BH, S, D), k/v: (BHkv, S, D)."""
+    q, k: (BH or BHkv, S, D), v: (BHkv, S, Dv), an optional softmax
+    ``scale`` (default D^-0.5)."""
 
-    def flash_attention_ref(q, k, v):
+    def flash_attention_ref(q, k, v, scale=None):
         group = q.shape[0] // k.shape[0]
         k_e = k.repeat_interleave(group, dim=0)
         v_e = v.repeat_interleave(group, dim=0)
         o = attention_ref(q[:, None], k_e[:, None], v_e[:, None],
-                          causal=causal)
+                          causal=causal, scale=scale)
         return o[:, 0]
 
     return flash_attention_ref
@@ -301,9 +302,10 @@ def flash_attention_bwd_ref_factory(causal: bool):
     gradients come in the inputs' dtype."""
     forward = flash_attention_ref_factory(causal)
 
-    def flash_attention_bwd_ref(q, k, v, do):
+    def flash_attention_bwd_ref(q, k, v, do, scale=None):
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            return torch.autograd.grad(forward(*inputs), inputs, do)
+            return torch.autograd.grad(forward(*inputs, scale=scale),
+                                       inputs, do)
 
     return flash_attention_bwd_ref

@@ -10,7 +10,7 @@ import torch
 from repro_torch.core.device import resolve_device
 
 from .config import (ArchConfig, FULL_WINDOW, MLACfg, MambaCfg, MoECfg,
-                     RWKVCfg)
+                     RWKVCfg, YarnCfg)
 from .encdec import EncDecLM
 from .transformer import DecoderLM
 
@@ -26,4 +26,4 @@ def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
 
 
 __all__ = ["ArchConfig", "FULL_WINDOW", "MLACfg", "MambaCfg", "MoECfg",
-           "RWKVCfg", "DecoderLM", "EncDecLM", "build_model"]
+           "RWKVCfg", "YarnCfg", "DecoderLM", "EncDecLM", "build_model"]

@@ -11,6 +11,8 @@ pins an activation's sharding on the device mesh of an enclosing
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -18,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.builder import torch_dtype
 
-from .config import ArchConfig
+from .config import ArchConfig, YarnCfg
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -172,29 +174,72 @@ def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------- rotary ----
 
-def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
-                                         device=device) / d_rot))
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 mscale ln(factor) + 1, or 1
+    where the factor does not stretch the context."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(y: YarnCfg, d_rot: int, theta: float
+                          ) -> tuple[int, int]:
+    """DeepSeek-V2's ``yarn_find_correction_range``: the rotary pairs from
+    the one that turns ``beta_fast`` times over the original context
+    (floored) to the one that turns ``beta_slow`` times (ceiled), clamped
+    to [0, d_rot - 1]."""
+    def dim(rotations: float) -> float:
+        return (d_rot * math.log(y.original_max_pos
+                                 / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim(y.beta_fast)), 0),
+            min(math.ceil(dim(y.beta_slow)), d_rot - 1))
+
+
+def rope_freqs(d_rot: int, theta: float, device=None,
+               yarn: YarnCfg | None = None) -> torch.Tensor:
+    """The inverse frequency of each rotary pair. With ``yarn``, as
+    DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``: a linear ramp over
+    the pairs of :func:`yarn_correction_range` blends the plain
+    (extrapolated) frequency, kept below the range, into the frequency
+    interpolated by ``factor``, taken above it."""
+    base = theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
+                                  device=device) / d_rot)
+    extra = 1.0 / base
+    if yarn is None:
+        return extra
+    inter = 1.0 / (yarn.factor * base)
+    low, high = yarn_correction_range(yarn, d_rot, theta)
+    high = high + 0.001 if low == high else high
+    ramp = ((torch.arange(d_rot // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_frac: float,
-               theta: float) -> torch.Tensor:
+               theta: float, yarn: YarnCfg | None = None) -> torch.Tensor:
     """x: (..., S, H, D) or (..., S, D); positions: (..., S) or (S,).
 
     Rotates the first ``rope_frac * D`` dims (partial rotary, stablelm) as
     interleaved pairs (x[2i], x[2i+1]), as the reference does, not the
-    half-split layout; the tail stays unrotated."""
+    half-split layout; the tail stays unrotated. ``yarn`` gives YaRN's
+    frequencies (:func:`rope_freqs`) and multiplies cos and sin by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
     d = x.shape[-1]
     d_rot = int(d * rope_frac)
     d_rot -= d_rot % 2
     if d_rot == 0:
         return x
     rot, keep = x[..., :d_rot], x[..., d_rot:]
-    freqs = rope_freqs(d_rot, theta, x.device)              # (d_rot/2,)
+    freqs = rope_freqs(d_rot, theta, x.device, yarn)        # (d_rot/2,)
     angles = positions[..., None].to(torch.float32) * freqs
     if x.dim() - positions.dim() == 3:                      # head axis present
         angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     r1, r2 = rot[..., ::2], rot[..., 1::2]
     o1 = r1 * cos - r2 * sin
     o2 = r2 * cos + r1 * sin

@@ -22,19 +22,45 @@ class MoECfg:
     top_k: int
     d_expert: int
     n_shared: int = 0
-    capacity_factor: float = 1.25
+    # None: dropless (every (token, choice) pair reaches its expert)
+    capacity_factor: float | None = 1.25
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
     chunk: int = 256             # seq chunk for capacity dispatch
+    norm_topk_prob: bool = True  # renormalise the top-k gates to sum 1
+    router_f32: bool = False     # the router's product in float32
 
 
 @dataclass(frozen=True)
 class MLACfg:
-    q_lora: int
+    q_lora: int | None           # None: one ``wq``, no query LoRA
     kv_lora: int
     d_nope: int
     d_rope: int
     d_v: int
+
+
+@dataclass(frozen=True)
+class YarnCfg:
+    """YaRN rotary scaling (DeepSeek-V2's ``rope_scaling`` of type
+    ``yarn``): the rotary pairs that turn fewer than ``beta_slow`` times
+    over ``original_max_pos`` positions rotate ``factor`` times slower,
+    those that turn more than ``beta_fast`` times as before, a linear ramp
+    between; the softmax scale is multiplied by ``mscale(factor,
+    mscale_all_dim)`` squared."""
+    factor: float
+    original_max_pos: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+#: The fields the port's configs have beyond the reference's, by class,
+#: with the value at which each behaves as the reference does. Every
+#: config of the reference's architectures holds these values.
+PORT_ONLY_FIELDS = {"ArchConfig": {"yarn": None},
+                    "MoECfg": {"norm_topk_prob": True, "router_f32": False}}
 
 
 @dataclass(frozen=True)
@@ -72,6 +98,7 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_frac: float = 1.0
     rope_theta: float = 10000.0
+    yarn: YarnCfg | None = None          # YaRN rope scaling (MLA only)
 
     # norms / MLP
     norm: Literal["rms", "ln"] = "rms"
@@ -157,8 +184,11 @@ class ArchConfig:
             else:
                 if self.mla is not None:
                     m = self.mla
-                    per += d * m.q_lora
-                    per += m.q_lora * self.n_heads * (m.d_nope + m.d_rope)
+                    d_qk = self.n_heads * (m.d_nope + m.d_rope)
+                    if m.q_lora is None:
+                        per += d * d_qk
+                    else:
+                        per += d * m.q_lora + m.q_lora * d_qk
                     per += d * (m.kv_lora + m.d_rope)
                     per += m.kv_lora * self.n_heads * (m.d_nope + m.d_v)
                     per += self.n_heads * m.d_v * d
@@ -227,12 +257,13 @@ class ArchConfig:
             # exactly (capacity dropping is train-time-only behavior)
             d["moe"] = replace(self.moe, n_routed=4, top_k=2, d_expert=32,
                                n_shared=min(self.moe.n_shared, 1), chunk=16,
-                               capacity_factor=4.0)
+                               capacity_factor=None
+                               if self.moe.capacity_factor is None else 4.0)
             d["dense_layers"] = tuple(x for x in self.dense_layers
                                       if x < d["n_layers"])
         if self.mla is not None:
-            d["mla"] = MLACfg(q_lora=32, kv_lora=16, d_nope=16, d_rope=8,
-                              d_v=16)
+            d["mla"] = MLACfg(q_lora=None if self.mla.q_lora is None else 32,
+                              kv_lora=16, d_nope=16, d_rope=8, d_v=16)
         if self.mamba is not None:
             d["mamba"] = replace(self.mamba, d_state=4)
         if self.rwkv is not None:

@@ -1,6 +1,20 @@
 """Fine-grained mixture-of-experts (DeepSeek-MoE / DeepSeek-V2 style):
 shared experts + routed top-k experts with capacity-bucketed one-hot
-dispatch (port of ``repro.models.moe``).
+dispatch (port of ``repro.models.moe``), or dropless grouped dispatch.
+
+Dropless (``capacity_factor`` None, DeepSeek-V2-Lite): every (token,
+choice) pair reaches its expert. The pairs are sorted by expert on the
+device, the tokens gathered in that order, and each expert weight runs as
+one grouped product (``torch._grouped_mm`` with the experts' end offsets
+as a device tensor) over the expert's own rows, the pair's gate scaling
+the input of the last one; the outputs go back to their pairs by the
+inverse permutation and are summed over a token's choices in float32.
+Nothing reads a count on the host, so the path adds no sync; the CPU and
+the card run the same code. Its steps run in the spans ``route``,
+``experts`` and ``combine`` inside the layer's ``moe`` span, and while
+spans are on and a reader has put a list in :data:`EXPERT_LOAD`, each
+call appends its routed pairs and its busiest expert's load, on the
+device, to that list.
 
 The sequence is processed in chunks of ``moe.chunk`` tokens (halved while
 it does not divide S); capacity is per chunk. Within a chunk each (token,
@@ -24,8 +38,17 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.obs import runtime as obs
+
 from .common import dense_init, dt
 from .config import ArchConfig, MoECfg
+
+#: Where dropless MoE calls count their load: None (nobody reads it, the
+#: default), or a list that a reader puts here and takes back, to which
+#: each call made while spans are on (``obs.spans_on``) appends (routed
+#: pairs, the busiest expert's pairs) as an int64 device tensor of two
+#: elements. Nothing is counted, and nothing grows, without a reader.
+EXPERT_LOAD: list[torch.Tensor] | None = None
 
 
 def init_moe(generator, cfg: ArchConfig, device) -> dict:
@@ -57,7 +80,24 @@ def _capacity(e: MoECfg, chunk_tokens: int) -> int:
 
 def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor
             ) -> tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (out, aux). Chunked over S."""
+    """x: (B, S, D) -> (out, aux): the routed experts (dropless, or
+    chunked over S with capacity buckets) plus the shared experts."""
+    with obs.span("moe", "model", x.device):
+        if cfg.moe.capacity_factor is None:
+            y, aux = _dropless(cfg, p, x)
+        else:
+            y, aux = _capacity_ffn(cfg, p, x)
+        if cfg.moe.n_shared:
+            h = x @ p["shared_in"].to(x.dtype)
+            g = x @ p["shared_gate"].to(x.dtype)
+            y = y + (F.silu(g) * h) @ p["shared_out"].to(x.dtype)
+    return y, aux
+
+
+def _capacity_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+    """The routed experts with capacity-bucketed dispatch, chunked over
+    S."""
     e = cfg.moe
     B, S, D = x.shape
     chunk = min(e.chunk, S)
@@ -82,26 +122,74 @@ def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor
         z_sum = z_sum + z
         ys.append(yc)
     y = torch.cat(ys, dim=1)
-
-    if e.n_shared:
-        h = x @ p["shared_in"].to(x.dtype)
-        g = x @ p["shared_gate"].to(x.dtype)
-        y = y + (F.silu(g) * h) @ p["shared_out"].to(x.dtype)
     aux = {"moe_load_balance": lb_sum / n_chunks,
            "moe_z_loss": z_sum / n_chunks}
     return y, aux
 
 
 def route(cfg: ArchConfig, p: dict, xc: torch.Tensor):
-    """The router of one chunk xc (B, C, D): (float32 logits, probs,
-    renormalised top-k gates, top-k expert ids), each (B, C, *). The
-    product runs in the activation dtype (a float32 copy of xc would be
-    as large as the hidden state); only the logits are upcast."""
-    logits = (xc @ p["router"].to(xc.dtype)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)                    # (B, C, E)
-    gate, sel = torch.topk(probs, cfg.moe.top_k, dim=-1)     # (B, C, K)
-    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)        # renorm (dsv2)
+    """The router of xc (..., D): (float32 logits, probs, top-k gates,
+    top-k expert ids), each (..., *). The product runs in the activation
+    dtype (a float32 copy of xc would be as large as the hidden state)
+    and only the logits are upcast, unless ``moe.router_f32`` (DeepSeek-V2's
+    ``MoEGate`` multiplies in float32). The gates are the softmax's top-k
+    probabilities, renormalised to sum to 1 where ``moe.norm_topk_prob``
+    (the reference's rule for every config it has)."""
+    e = cfg.moe
+    if e.router_f32:
+        logits = xc.to(torch.float32) @ p["router"].to(torch.float32)
+    else:
+        logits = (xc @ p["router"].to(xc.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                    # (..., E)
+    gate, sel = torch.topk(probs, e.top_k, dim=-1)           # (..., K)
+    if e.norm_topk_prob:
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
     return logits, probs, gate, sel
+
+
+def _aux(e: MoECfg, logits, probs, counts, pairs: int) -> dict:
+    """The load-balance and z losses of one dispatch, from its per-expert
+    pair ``counts`` (as the capacity path computes them per chunk)."""
+    ce = counts.to(torch.float32) * (1.0 / pairs)            # choice share
+    return {"moe_load_balance": e.n_routed * torch.sum(
+                probs.reshape(-1, e.n_routed).mean(0) * ce),
+            "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)}
+
+
+def _dropless(cfg: ArchConfig, p: dict, x: torch.Tensor
+              ) -> tuple[torch.Tensor, dict]:
+    """The routed experts of x (B, S, D) with no pair dropped: the pairs
+    sorted by expert, one grouped product per expert weight, the outputs
+    summed back by gate in float32."""
+    e = cfg.moe
+    B, S, D = x.shape
+    T, K = B * S, e.top_k
+    xt = x.reshape(T, D)
+    with obs.span("route", "model", x.device):
+        logits, probs, gate, sel = route(cfg, p, xt)        # (T, E), (T, K)
+        # pairs by expert; each expert's end is found in the sorted ids
+        # (bincount on a card reads its input's max on the host)
+        ids, order = torch.sort(sel.reshape(-1), stable=True)
+        ends = torch.searchsorted(
+            ids, torch.arange(e.n_routed, device=ids.device), right=True,
+            out_int32=True)
+        counts = torch.diff(ends, prepend=ends.new_zeros(1)).long()
+        xs = xt.index_select(0, order // K)                 # (T*K, D)
+    load = EXPERT_LOAD
+    if load is not None and obs.spans_on(x.device):
+        load.append(torch.stack([counts.sum(), counts.max()]))
+    with obs.span("experts", "model", x.device):
+        cd = x.dtype
+        h = torch._grouped_mm(xs, p["w_in"].to(cd), offs=ends)
+        g = torch._grouped_mm(xs, p["w_gate"].to(cd), offs=ends)
+        # each pair's gate scales the last product's input, which is
+        # linear in it: no (T*K, D) float32 pass after the products
+        a = F.silu(g) * h * gate.reshape(-1)[order, None].to(cd)
+        ys = torch._grouped_mm(a, p["w_out"].to(cd), offs=ends)
+    with obs.span("combine", "model", x.device):
+        back = torch.empty_like(ys).index_copy_(0, order, ys)   # pair order
+        y = back.view(T, K, D).sum(1, dtype=torch.float32)
+    return y.to(x.dtype).view(B, S, D), _aux(e, logits, probs, counts, T * K)
 
 
 def _experts(xe, w_in, w_gate, w_out):

@@ -160,5 +160,14 @@ def span(name: str, cat: str = "repro", device=None):
     return _Span(name, cat, tr, profiled)
 
 
+def spans_on(device=None) -> bool:
+    """Whether :func:`span` records on ``device``: a profiler session or
+    the tracer is on, and the work is not on ``meta``. Sites that keep a
+    counter only while spans are on ask this."""
+    if _tracer is None and not _autograd_profiler._is_profiler_enabled:
+        return False
+    return getattr(device, "type", device) != "meta"
+
+
 if obs_requested():            # pragma: no cover — env-dependent
     enable()

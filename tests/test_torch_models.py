@@ -33,7 +33,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, common
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import PORT_ONLY_FIELDS, ArchConfig
 from repro_torch.models.convert import params_from_jax
 
 torch.set_num_threads(1)
@@ -314,10 +314,16 @@ def test_every_reference_architecture_builds():
 
 
 def test_configs_are_the_reference_configs():
+    """The dense configs equal the reference's, field for field; the
+    fields only the port has hold the values at which it behaves as the
+    reference does."""
+    extra = PORT_ONLY_FIELDS["ArchConfig"]
     for name in DENSE:
-        assert get_arch(name).__dict__ == repro_arch(name).__dict__
+        port = dict(get_arch(name).__dict__)
+        assert {k: port.pop(k) for k in extra} == extra
+        assert port == repro_arch(name).__dict__
     assert set(ArchConfig.__dataclass_fields__) == \
-        set(repro_arch("gemma2-2b").__dataclass_fields__)
+        set(repro_arch("gemma2-2b").__dataclass_fields__) | set(extra)
 
 
 def test_build_model_raises_without_a_card():

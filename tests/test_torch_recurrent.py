@@ -54,6 +54,7 @@ from repro_torch import tree
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels import flash_attention
 from repro_torch.models import EncDecLM, build_model, mamba, rwkv
+from repro_torch.models.config import PORT_ONLY_FIELDS
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Request, ServeEngine
 
@@ -182,9 +183,20 @@ def pair(request) -> Pair:
 # --------------------------------------------------------------- configs
 
 def _fields(cfg) -> dict:
-    return {k: (type(v).__name__, dataclasses.asdict(v))
-            if dataclasses.is_dataclass(v) else v
-            for k, v in cfg.__dict__.items()}
+    """``cfg.__dict__`` with each nested config (``MoECfg``, ``MLACfg``:
+    the port's own copies of the reference's classes) as its class name
+    and field dict. The fields only the port has (``PORT_ONLY_FIELDS``)
+    must hold the values at which it behaves as the reference does, and
+    are then left out."""
+    extra = PORT_ONLY_FIELDS.get(type(cfg).__name__, {})
+    out = {}
+    for k, v in cfg.__dict__.items():
+        if k in extra:
+            assert v == extra[k], f"{type(cfg).__name__}.{k} = {v!r}"
+            continue
+        out[k] = ((type(v).__name__, _fields(v))
+                  if dataclasses.is_dataclass(v) else v)
+    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)

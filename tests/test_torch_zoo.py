@@ -45,6 +45,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, mla, moe
+from repro_torch.models.config import PORT_ONLY_FIELDS
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Request, ServeEngine
 
@@ -156,10 +157,18 @@ def _assert_trees_close(got: dict, want, tol: float) -> None:
 def _fields(cfg) -> dict:
     """``cfg.__dict__`` with each nested config (``MoECfg``, ``MLACfg``:
     the port's own copies of the reference's classes) as its class name
-    and field dict."""
-    return {k: (type(v).__name__, dataclasses.asdict(v))
-            if dataclasses.is_dataclass(v) else v
-            for k, v in cfg.__dict__.items()}
+    and field dict. The fields only the port has (``PORT_ONLY_FIELDS``)
+    must hold the values at which it behaves as the reference does, and
+    are then left out."""
+    extra = PORT_ONLY_FIELDS.get(type(cfg).__name__, {})
+    out = {}
+    for k, v in cfg.__dict__.items():
+        if k in extra:
+            assert v == extra[k], f"{type(cfg).__name__}.{k} = {v!r}"
+            continue
+        out[k] = ((type(v).__name__, _fields(v))
+                  if dataclasses.is_dataclass(v) else v)
+    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)
